@@ -1,0 +1,151 @@
+"""ConditionalFlowMatchingWithHifiGan: the unit-to-waveform decoder.
+
+Counterpart of speech_resynth_tpu/models/composite.py. ``synthesize`` runs
+the CFM ODE to a log-mel and the HiFi-GAN generator to a padded waveform
+batch with per-row lengths, all on the decoder's device and without a host
+sync, so a caller can queue several batches; ``__call__`` returns the
+reference's list of trimmed numpy waveforms.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+from pathlib import Path
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.device import DeviceLike, resolve_device
+from ..core.precision import BF16_INFERENCE, Policy
+from ..dsp.mulaw import mulaw_encode
+from .cfm import CFMConfig, ConditionalFlowMatchingModel
+from .convert import load_checkpoint
+from .hifigan import HifiGanConfig, HifiGanGenerator
+
+
+@torch.no_grad()
+def init_random_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights (CPU generator): zero biases and adaptive-norm
+    gains, unit norm weights, N(0, 1) embeddings and Fourier frequencies, and
+    N(0, 1/fan_in) for every other weight, so activations stay O(1)."""
+    for name, p in list(module.named_parameters()) + list(module.named_buffers()):
+        if name.endswith("bias") or name.endswith("to_weight.weight") or name == "mean":
+            p.zero_()
+        elif name.endswith("norm.weight") or name == "scale":
+            p.fill_(1.0)
+        else:
+            fan_in = p[0].numel() if p.ndim > 1 else 1
+            std = 1.0 if p.ndim == 1 or name == "to_cond_emb.weight" else 1.0 / math.sqrt(fan_in)
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def _to_device(module: nn.Module, device: torch.device) -> nn.Module:
+    return module.to(device).eval().requires_grad_(False)
+
+
+class ConditionalFlowMatchingWithHifiGan:
+    def __init__(self, model: ConditionalFlowMatchingModel, vocoder: HifiGanGenerator, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = _to_device(model, self.device)
+        self.vocoder = _to_device(vocoder, self.device)
+
+    # -- construction ----------------------------------------------------------
+
+    @classmethod
+    def from_config(
+        cls,
+        model_config: CFMConfig,
+        vocoder_config: HifiGanConfig = HifiGanConfig(),
+        policy: Policy = BF16_INFERENCE,
+        generator: Optional[torch.Generator] = None,
+        device: DeviceLike = None,
+    ) -> "ConditionalFlowMatchingWithHifiGan":
+        """Random weights from ``generator`` (a CPU ``torch.Generator``; seed 0
+        when omitted)."""
+        device = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        model = ConditionalFlowMatchingModel(model_config, policy)
+        init_random_weights(model, gen)
+        vocoder = HifiGanGenerator(vocoder_config, policy)
+        init_random_weights(vocoder, gen)
+        return cls(model, vocoder, device)
+
+    @classmethod
+    def from_pretrained(
+        cls, model_dir: Union[str, Path], policy: Policy = BF16_INFERENCE, device: DeviceLike = None
+    ) -> "ConditionalFlowMatchingWithHifiGan":
+        """Load a local composite checkpoint directory: ``config.json`` with
+        ``model_config`` and ``vocoder_config``, and weights keyed ``model.*``
+        and ``vocoder.*`` (the layout ``save_composite_pretrained`` writes).
+        Parameters take ``policy.param_dtype``; buffers stay f32."""
+        device = resolve_device(device)
+        model_dir = Path(model_dir)
+        if not model_dir.is_dir():
+            raise FileNotFoundError(f"{model_dir} is not a local checkpoint directory")
+        with open(model_dir / "config.json") as f:
+            cfg = json.load(f)
+        m = cfg["model_config"]
+        model_config = CFMConfig(**{k: m[k] for k in dataclasses.asdict(CFMConfig()) if k in m})
+        vocoder_config = HifiGanConfig.from_dict(cfg["vocoder_config"])
+
+        sd = load_checkpoint(model_dir)
+        model = ConditionalFlowMatchingModel(model_config, policy)
+        model.load_state_dict({k[len("model.") :]: v for k, v in sd.items() if k.startswith("model.")})
+        vocoder = HifiGanGenerator(vocoder_config, policy)
+        vocoder.load_state_dict({k[len("vocoder.") :]: v for k, v in sd.items() if k.startswith("vocoder.")})
+        return cls(model, vocoder, device)
+
+    # -- inference --------------------------------------------------------------
+
+    @torch.inference_mode()
+    def synthesize(
+        self,
+        input_ids,
+        dt: float = 0.1,
+        truncation_value: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+        x0: Optional[torch.Tensor] = None,
+        pcm16: bool = False,
+        mulaw: bool = False,
+        ode_method: str = "euler",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(padded waveforms (B, T_max), lengths (B,)), both on the device.
+
+        ``pcm16=True`` gives int16 samples, ``mulaw=True`` uint8 mu-law codes
+        (both converted on the device); the two are exclusive. The ODE noise
+        is ``x0`` when given, else drawn from ``generator`` (a generator on
+        the decoder's device; seed 0 when omitted)."""
+        if pcm16 and mulaw:
+            raise ValueError("pcm16 and mulaw are mutually exclusive wire formats")
+        ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(input_ids) else input_ids)
+        ids = ids.to(self.device, torch.long, non_blocking=True)
+        if x0 is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        spectrogram, frame_mask = self.model.sample(
+            ids, dt, truncation_value, generator=generator, x0=x0, ode_method=ode_method
+        )
+        lengths = self.vocoder.config.waveform_lengths(frame_mask.sum(dim=1))
+        waveform = self.vocoder(spectrogram)
+        if mulaw:
+            waveform = mulaw_encode(waveform)
+        elif pcm16:
+            waveform = torch.round(waveform.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+        return waveform, lengths
+
+    def __call__(
+        self,
+        input_ids,
+        dt: float = 0.1,
+        truncation_value: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+        x0: Optional[torch.Tensor] = None,
+        ode_method: str = "euler",
+    ) -> List[np.ndarray]:
+        """Reference-signature path: a list of (1, T_i) trimmed f32 waveforms."""
+        waveform, lengths = self.synthesize(input_ids, dt, truncation_value, generator, x0, ode_method=ode_method)
+        waveform, lengths = waveform.cpu().numpy(), lengths.cpu().numpy()
+        return [w[None, :n] for w, n in zip(waveform, lengths)]

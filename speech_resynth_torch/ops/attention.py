@@ -1,0 +1,115 @@
+"""Multi-head attention: the hand-written flash kernel (K1) and its plain version.
+
+Counterpart of speech_resynth_tpu/ops/attention.py. ``attention_reference``
+is the plain PyTorch version and defines the semantics; ``flash_attention``
+launches ``csrc/flash_attention.cu`` on CUDA tensors; ``dot_product_attention``
+is what the models call: the kernel for a CUDA tensor, the plain version for
+a CPU tensor, and nothing else.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .build import check_launch, kernel_library
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """(B, H, N, D) attention with f32 scores. ``mask``: (B, N_k) bool, True =
+    valid key. Masked logits take the finite ``NEG_INF``, so a row whose keys
+    are all masked is the mean of V (a bool mask in SDPA would give NaN)."""
+    q_len, d = q.shape[-2], q.shape[-1]
+    k_len = k.shape[-2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    if causal:
+        allowed = torch.ones(q_len, k_len, dtype=torch.bool, device=q.device).tril(k_len - q_len)
+        logits = logits.masked_fill(~allowed, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+def _check_flash_args(q, k, v, mask, causal) -> None:
+    if q.ndim != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"flash_attention wants q (B, H, Nq, D), k = v (B, H, Nk, D); got {q.shape}, {k.shape}, {v.shape}")
+    if q.shape[-1] not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention supports head dims {FLASH_HEAD_DIMS}, got {q.shape[-1]}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention wants q, k, v of one dtype, f32 or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if causal and q.shape[2] > k.shape[2]:
+        # queries past the last key would see no allowed key at all
+        raise ValueError(f"flash_attention requires q_len <= k_len when causal, got {q.shape[2]} > {k.shape[2]}")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (q.shape[0], k.shape[2])):
+        raise ValueError(f"mask must be bool (B, Nk) = {(q.shape[0], k.shape[2])}, got {mask.dtype} {tuple(mask.shape)}")
+    tensors = (q, k, v) if mask is None else (q, k, v, mask)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention wants contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the kernel loads rows as 16-byte vectors; a contiguous view at an odd offset would fault
+        raise ValueError("flash_attention wants q, k, v data 16-byte aligned")
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("flash_attention launches a CUDA kernel: every tensor must be on the card")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Launch the flash-attention kernel on CUDA tensors (B, H, N, D), D in
+    (64, 128), f32 or bf16. Output in q's dtype. Raises on anything else."""
+    _check_flash_args(q, k, v, mask, causal)
+    b, h, q_len, d = q.shape
+    out = torch.empty_like(q)
+    err = kernel_library().srt_flash_attention(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(),
+        b,
+        h,
+        q_len,
+        k.shape[2],
+        d,
+        int(q.dtype == torch.bfloat16),
+        int(causal),
+        1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Attention over (B, H, N, D): the flash kernel on the card, the plain
+    version for CPU tensors."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, mask, causal)
+    return attention_reference(q, k, v, mask, causal)
