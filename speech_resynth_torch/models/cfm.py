@@ -1,10 +1,12 @@
 """Conditional flow matching mel decoder, inference path.
 
-Counterpart of speech_resynth_tpu/models/cfm.py (``CFMConfig`` and
-``ConditionalFlowMatchingModel``: ``_embed_units``, ``_velocity``, ``sample``).
-``sample`` integrates the flow from noise to a log-mel with a fixed-step
-Euler or midpoint ODE; the ODE state and the velocity are f32, and pad frames
-hold log(1e-5).
+Counterpart of speech_resynth_tpu/models/cfm.py (``CFMConfig``,
+``DurationPredictor`` and ``ConditionalFlowMatchingModel``: ``_embed_units``,
+``_velocity``, ``predict_durations``, ``sample``). ``sample`` integrates the
+flow from noise to a log-mel with a fixed-step Euler or midpoint ODE; the ODE
+state and the velocity are f32, and pad frames hold log(1e-5). With
+``predict_duration`` the unit embeddings are first repeated by the predicted
+durations (``ops.length_regulator``) up to a frame bound ``max_frames``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import DEFAULT, Policy
+from ..ops.length_regulator import regulate_length
 from .transformer import ConvPositionEmbed, TimeConditionEmbed, Transformer, TransformerConfig, _linear
 
 MEL_PAD_VALUE = float(np.log(1e-5))  # log-compression of silence; pad-frame sentinel
+LOG_DOMAIN_OFFSET = 1.0  # durations are predicted as log(d + 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +56,23 @@ class CFMConfig:
         )
 
 
+class DurationPredictor(nn.Module):
+    """Conv1d(dim_cond_emb -> 1, k=3, SAME) in f32; at inference the
+    log-domain output becomes round(exp(out) - 1), clamped at 0, as int32
+    (torch.round, like jnp.round, rounds half to even)."""
+
+    def __init__(self, dim_cond_emb: int, policy: Policy = DEFAULT):
+        super().__init__()
+        self.conv = nn.Conv1d(dim_cond_emb, 1, 3, padding=1, dtype=policy.param_dtype)
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        """(B, L, D) -> (B, L) int32 durations."""
+        out = F.conv1d(
+            hidden_states.float().transpose(1, 2), self.conv.weight.float(), self.conv.bias.float(), padding=1
+        )[:, 0]
+        return torch.clamp(torch.round(torch.exp(out) - LOG_DOMAIN_OFFSET), min=0.0).to(torch.int32)
+
+
 def ode_num_steps(dt: float) -> int:
     """Steps of a fixed-step ODE over [0, 1]; ``dt`` must tile it exactly."""
     num_steps = int(np.ceil(round(1.0 / dt, 9)))
@@ -81,6 +102,8 @@ class ConditionalFlowMatchingModel(nn.Module):
         )
         self.transformer = Transformer(cfg.transformer(), policy)
         self.to_pred = nn.Linear(cfg.hidden_size, cfg.dim_in, bias=False, dtype=pd)
+        if cfg.predict_duration:
+            self.duration_predictor = DurationPredictor(cfg.dim_cond_emb, policy)
 
     def _embed_units(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Unit embedding with padding_idx=0 semantics (the pad row reads as zero)."""
@@ -97,6 +120,13 @@ class ConditionalFlowMatchingModel(nn.Module):
         return _linear(x, self.to_pred, cd).float()
 
     @torch.inference_mode()
+    def predict_durations(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Rounded durations per token (B, L) int32, zero at pad tokens: the
+        pre-pass that picks the frame bound of ``sample``."""
+        durations = self.duration_predictor(self._embed_units(input_ids))
+        return durations.masked_fill(input_ids == 0, 0)
+
+    @torch.inference_mode()
     def sample(
         self,
         input_ids: torch.Tensor,
@@ -106,23 +136,30 @@ class ConditionalFlowMatchingModel(nn.Module):
         generator: Optional[torch.Generator] = None,
         x0: Optional[torch.Tensor] = None,
         ode_method: str = "euler",
+        max_frames: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fixed-step ODE mel synthesis: (log_mels (B, L, dim_in) f32, frame mask (B, L)).
+        """Fixed-step ODE mel synthesis: (log_mels (B, N, dim_in) f32, frame mask (B, N)).
 
-        The noise is ``x0`` when given, else drawn from ``generator``.
-        ``ode_method``: ``"euler"`` (one velocity evaluation per step) or
-        ``"midpoint"`` (two per step, second order)."""
+        N is the input length, or with ``predict_duration`` the frame bound
+        ``max_frames`` (the largest predicted total when omitted: exact, never
+        cut). The noise is ``x0`` (B, N, dim_in) when given, else drawn from
+        ``generator``. ``ode_method``: ``"euler"`` (one velocity evaluation
+        per step) or ``"midpoint"`` (two per step, second order)."""
         cfg = self.config
-        if cfg.predict_duration:
-            raise NotImplementedError(
-                "predict_duration=True (DurationPredictor + length regulation) is not ported yet: "
-                "ROADMAP.md queue 1, 'duration prediction and length regulator'"
-            )
         if ode_method not in ("euler", "midpoint"):
             raise ValueError(f"unknown ode_method {ode_method!r} (euler|midpoint)")
         num_steps = ode_num_steps(dt)
-        mask = input_ids != 0
+        token_mask = input_ids != 0
         cond = self._embed_units(input_ids)
+        if cfg.predict_duration:
+            durations = self.duration_predictor(cond).masked_fill(~token_mask, 0)
+            if max_frames is None:
+                max_frames = max(int(durations.sum(dim=-1).max()), 1)
+            cond, mask = regulate_length(cond, durations, max_frames)
+        else:
+            mask = token_mask
+            if max_frames is not None and max_frames != input_ids.shape[1]:
+                raise ValueError("max_frames must equal input length when predict_duration=False")
         bsz, seq_len, _ = cond.shape
         if x0 is None:
             if generator is None:

@@ -4,7 +4,10 @@ Counterpart of speech_resynth_tpu/models/composite.py. ``synthesize`` runs
 the CFM ODE to a log-mel and the HiFi-GAN generator to a padded waveform
 batch with per-row lengths, all on the decoder's device and without a host
 sync, so a caller can queue several batches; ``__call__`` returns the
-reference's list of trimmed numpy waveforms.
+reference's list of trimmed numpy waveforms. A duration-predicting model
+first runs its duration predictor to pick the frame bound (``_duration_bound``,
+a multiple of 64 as in the JAX package, so the padded vocoder input and the
+tail samples of each row are the same): that pre-pass waits for the card.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ def init_random_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 def _to_device(module: nn.Module, device: torch.device) -> nn.Module:
     return module.to(device).eval().requires_grad_(False)
+
+
+def _cfm_config(m: dict) -> CFMConfig:
+    return CFMConfig(**{k: m[k] for k in dataclasses.asdict(CFMConfig()) if k in m})
 
 
 class ConditionalFlowMatchingWithHifiGan:
@@ -88,8 +95,7 @@ class ConditionalFlowMatchingWithHifiGan:
             raise FileNotFoundError(f"{model_dir} is not a local checkpoint directory")
         with open(model_dir / "config.json") as f:
             cfg = json.load(f)
-        m = cfg["model_config"]
-        model_config = CFMConfig(**{k: m[k] for k in dataclasses.asdict(CFMConfig()) if k in m})
+        model_config = _cfm_config(cfg["model_config"])
         vocoder_config = HifiGanConfig.from_dict(cfg["vocoder_config"])
 
         sd = load_checkpoint(model_dir)
@@ -99,7 +105,42 @@ class ConditionalFlowMatchingWithHifiGan:
         vocoder.load_state_dict({k[len("vocoder.") :]: v for k, v in sd.items() if k.startswith("vocoder.")})
         return cls(model, vocoder, device)
 
+    @classmethod
+    def load_pretrained(
+        cls,
+        model_path: Union[str, Path],
+        vocoder_path: Union[str, Path],
+        policy: Policy = BF16_INFERENCE,
+        device: DeviceLike = None,
+    ) -> "ConditionalFlowMatchingWithHifiGan":
+        """Two local directories, as the trainers export them: the CFM model's
+        (``config.json`` holding the CFM config, un-prefixed weights) and the
+        vocoder's (``config.json`` holding the HiFi-GAN config)."""
+        device = resolve_device(device)
+        model_dir, voc_dir = Path(model_path), Path(vocoder_path)
+        for d in (model_dir, voc_dir):
+            if not d.is_dir():
+                raise FileNotFoundError(f"{d} is not a local checkpoint directory")
+        with open(model_dir / "config.json") as f:
+            model_config = _cfm_config(json.load(f))
+        with open(voc_dir / "config.json") as f:
+            vocoder_config = HifiGanConfig.from_dict(json.load(f))
+        model = ConditionalFlowMatchingModel(model_config, policy)
+        model.load_state_dict(load_checkpoint(model_dir))
+        vocoder = HifiGanGenerator(vocoder_config, policy)
+        voc_sd = load_checkpoint(voc_dir)
+        for name, identity in (("mean", vocoder.mean), ("scale", vocoder.scale)):
+            voc_sd.setdefault(name, identity)  # a checkpoint without input stats normalizes by identity
+        vocoder.load_state_dict(voc_sd)
+        return cls(model, vocoder, device)
+
     # -- inference --------------------------------------------------------------
+
+    def _duration_bound(self, ids: torch.Tensor) -> int:
+        """Frame bound of a duration-predicting batch: the largest predicted
+        total, rounded up to a multiple of 64 (at least 64)."""
+        needed = int(self.model.predict_durations(ids).sum(dim=-1).max())
+        return max(64, -(-max(needed, 1) // 64) * 64)
 
     @torch.inference_mode()
     def synthesize(
@@ -112,6 +153,7 @@ class ConditionalFlowMatchingWithHifiGan:
         pcm16: bool = False,
         mulaw: bool = False,
         ode_method: str = "euler",
+        max_frames: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(padded waveforms (B, T_max), lengths (B,)), both on the device.
 
@@ -125,8 +167,10 @@ class ConditionalFlowMatchingWithHifiGan:
         ids = ids.to(self.device, torch.long, non_blocking=True)
         if x0 is None and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        if max_frames is None and self.model.config.predict_duration:
+            max_frames = self._duration_bound(ids)
         spectrogram, frame_mask = self.model.sample(
-            ids, dt, truncation_value, generator=generator, x0=x0, ode_method=ode_method
+            ids, dt, truncation_value, generator=generator, x0=x0, ode_method=ode_method, max_frames=max_frames
         )
         lengths = self.vocoder.config.waveform_lengths(frame_mask.sum(dim=1))
         waveform = self.vocoder(spectrogram)
@@ -144,8 +188,11 @@ class ConditionalFlowMatchingWithHifiGan:
         generator: Optional[torch.Generator] = None,
         x0: Optional[torch.Tensor] = None,
         ode_method: str = "euler",
+        max_frames: Optional[int] = None,
     ) -> List[np.ndarray]:
         """Reference-signature path: a list of (1, T_i) trimmed f32 waveforms."""
-        waveform, lengths = self.synthesize(input_ids, dt, truncation_value, generator, x0, ode_method=ode_method)
+        waveform, lengths = self.synthesize(
+            input_ids, dt, truncation_value, generator, x0, ode_method=ode_method, max_frames=max_frames
+        )
         waveform, lengths = waveform.cpu().numpy(), lengths.cpu().numpy()
         return [w[None, :n] for w, n in zip(waveform, lengths)]

@@ -3,8 +3,10 @@
 The port's own copy of the mapping that speech_resynth_tpu/models/export.py
 applies when it writes an HF-format checkpoint. The trees hold numpy arrays
 (or anything ``np.asarray`` reads); the result loads with
-``module.load_state_dict`` into ``ConditionalFlowMatchingModel`` or
-``HifiGanGenerator``, whose parameter names are the HF keys.
+``module.load_state_dict`` into ``ConditionalFlowMatchingModel``,
+``HifiGanGenerator`` or ``HubertEncoder``, whose parameter names are the HF
+keys. ``hubert_state_dict_from_hf`` reads an HF ``HubertModel`` state_dict
+(the port's copy of speech_resynth_tpu/models/convert.py:hubert_params).
 
 Layouts (Flax -> torch):
   Conv1d kernel   (K, I, O) -> (O, I, K)
@@ -19,6 +21,12 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
 
 
 def _t(x) -> torch.Tensor:
@@ -74,8 +82,6 @@ def cfm_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     state_dict, the Fourier buffer ``time_cond_mlp.0.weights`` included."""
     params = variables["params"]
     buffers = variables.get("buffers", {})
-    if "duration_predictor" in params:
-        raise NotImplementedError("duration predictor weights are not ported yet (ROADMAP.md queue 1)")
     sd: Dict[str, torch.Tensor] = {
         "to_cond_emb.weight": _t(params["to_cond_emb"]["embedding"]),
         "time_cond_mlp.0.weights": _t(buffers["time_cond_mlp"]["fourier"]["weights"]),
@@ -104,7 +110,84 @@ def cfm_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"{p}.4.conv2.bias"] = _t(ff["conv2_bias"])
         ind += 1
     sd["transformer.final_norm.weight"] = _t(tr["final_norm"]["weight"])
+    if "duration_predictor" in params:
+        sd["duration_predictor.conv.weight"] = _conv1d_w(params["duration_predictor"]["kernel"])  # (3, D, 1) -> (1, D, 3)
+        sd["duration_predictor.conv.bias"] = _t(params["duration_predictor"]["bias"])
     return sd
+
+
+def _ln(p: Mapping) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def _dense(p: Mapping) -> Dict[str, torch.Tensor]:
+    return {"weight": _dense_w(p["kernel"]), "bias": _t(p["bias"])}
+
+
+def hubert_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``HubertEncoder`` params -> the port's ``HubertEncoder`` state_dict."""
+    parts: Dict[str, Dict[str, torch.Tensor]] = {}
+    fe = params["feature_extractor"]
+    i = 0
+    while f"conv_layers_{i}" in fe:
+        layer = fe[f"conv_layers_{i}"]
+        parts[f"feature_extractor.conv_layers.{i}.conv"] = {"weight": _conv1d_w(layer["kernel"])}
+        if "norm_scale" in layer:
+            parts[f"feature_extractor.conv_layers.{i}.layer_norm"] = {
+                "weight": _t(layer["norm_scale"]),
+                "bias": _t(layer["norm_bias"]),
+            }
+        i += 1
+    parts["feature_projection.layer_norm"] = _ln(params["feature_projection_norm"])
+    parts["feature_projection.projection"] = _dense(params["feature_projection_dense"])
+    parts["encoder.pos_conv_embed.conv"] = {
+        "weight": _conv1d_w(params["pos_conv_kernel"]),
+        "bias": _t(params["pos_conv_bias"]),
+    }
+    parts["encoder.layer_norm"] = _ln(params["encoder_norm"])
+    i = 0
+    while f"layers_{i}" in params:
+        layer, p = params[f"layers_{i}"], f"encoder.layers.{i}"
+        for ours, theirs in (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"), ("out_proj", "o_proj")):
+            parts[f"{p}.attention.{ours}"] = _dense(layer[theirs])
+        parts[f"{p}.layer_norm"] = _ln(layer["attn_norm"])
+        parts[f"{p}.feed_forward.intermediate_dense"] = _dense(layer["ff_in"])
+        parts[f"{p}.feed_forward.output_dense"] = _dense(layer["ff_out"])
+        parts[f"{p}.final_layer_norm"] = _ln(layer["ff_norm"])
+        i += 1
+    return {f"{prefix}.{name}": t for prefix, tensors in parts.items() for name, t in tensors.items()}
+
+
+POS_CONV = "encoder.pos_conv_embed.conv"
+
+
+def _weight_normed_conv1d(sd: Mapping, base: str) -> torch.Tensor:
+    """One Conv1d weight from a torch ``weight_norm(conv, dim=2)``: the legacy
+    ``weight_g``/``weight_v`` names or the torch>=2.1
+    ``parametrizations.weight.original{0,1}`` names."""
+    if f"{base}.weight_g" in sd:
+        g, v = _t(_np(sd[f"{base}.weight_g"])), _t(_np(sd[f"{base}.weight_v"]))
+    else:
+        g = _t(_np(sd[f"{base}.parametrizations.weight.original0"]))
+        v = _t(_np(sd[f"{base}.parametrizations.weight.original1"]))
+    norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))  # over (O, I) per tap
+    return g * v / norm
+
+
+def hubert_state_dict_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """HF ``HubertModel`` (or ``Wav2Vec2Model``) state_dict -> the port's
+    ``HubertEncoder`` state_dict: the same keys, in f32, with the weight-normed
+    positional conv folded into ``encoder.pos_conv_embed.conv.weight`` and the
+    pre-training-only ``masked_spec_embed`` dropped."""
+    sd = dict(state_dict)
+    out = {
+        k: _t(_np(v))
+        for k, v in sd.items()
+        if not k.startswith(POS_CONV + ".") and k != "masked_spec_embed"
+    }
+    out[POS_CONV + ".weight"] = _weight_normed_conv1d(sd, POS_CONV)
+    out[POS_CONV + ".bias"] = _t(_np(sd[POS_CONV + ".bias"]))
+    return out
 
 
 def load_checkpoint(model_dir: Path) -> Dict[str, torch.Tensor]:

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -40,6 +40,8 @@ SIGNATURES = {
     "srt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, out, B, C, T, K, n_pairs, d0, d1, d2, t_tile, is_bf16, slope, stream
     "srt_mrf_branch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x^T (D, N), centers^T (D, K), half_sq, packed (scratch), ids, N, D, K, splits, stream
+    "srt_codebook_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -50,20 +52,28 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` (in parallel) and link them; returns the
-    library path. Reuses an existing library built from identical sources."""
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def cached_library(stem: str, sources: Sequence[Path], flags: Sequence[str], compile_to: Callable[[Path], None]) -> Path:
+    """``BUILD_DIR/<stem>_<hash>.so``, the hash taken over ``flags`` and the
+    sources: reused when it exists, else ``compile_to(tmp)`` writes it to a
+    temporary path that then replaces it atomically, so a concurrent loader
+    never sees a partial file."""
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode() + src.read_bytes())
-    tag = digest.hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsrt_kernels_{tag}.so"
+    lib_path = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.is_file():
         return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    compile_to(tmp)
+    os.replace(tmp, lib_path)
+    return lib_path
 
+
+def _nvcc_build(sources: Sequence[Path], out: Path) -> None:
+    """Compile each source in its own ``nvcc`` (all started together), then link."""
     nvcc = _nvcc()
-    obj_dir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    obj_dir = out.with_suffix(".obj")
     obj_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources:
@@ -72,19 +82,23 @@ def build_library() -> Path:
         procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     objs, failures = [], []
     for src, obj, proc in procs:
-        out, _ = proc.communicate()
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{src.name}:\n{out}")
+            failures.append(f"{src.name}:\n{log}")
         objs.append(str(obj))
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    tmp = obj_dir / lib_path.name
-    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp)], capture_output=True, text=True)
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(out)], capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees a partial file
     shutil.rmtree(obj_dir, ignore_errors=True)
-    return lib_path
+
+
+def build_library() -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) and link them; returns the
+    library path. Reuses an existing library built from identical sources."""
+    sources = sorted(CSRC.glob("*.cu"))
+    return cached_library("libsrt_kernels", sources, NVCC_FLAGS, lambda out: _nvcc_build(sources, out))
 
 
 def kernel_library() -> ctypes.CDLL:

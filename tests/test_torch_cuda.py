@@ -12,7 +12,10 @@ Tolerances: in f32 (TF32 off for matmuls and cuDNN convs) the kernel and the
 plain version differ only in summation order, 1e-4 for attention's O(1)
 outputs and 1e-3 for the six-conv MRF chain; in bf16 the two round the
 probabilities or the conv operands at different points, a few bf16 ulps of
-the O(1) outputs (1e-2 for attention, 6e-2 for the MRF chain).
+the O(1) outputs (1e-2 for attention, 6e-2 for the MRF chain). The k-means
+assignment compares ids: they must agree on every frame whose two best
+scores differ by more than 1e-3 * (|best| + 1), where the two summation
+orders cannot flip the winner.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from speech_resynth_torch.ops import attention as TA
+from speech_resynth_torch.ops import codebook as TC
 from speech_resynth_torch.ops import fused_mrf as TM
 
 
@@ -75,3 +79,52 @@ def test_mrf_kernel_matches_plain_on_card(card, dtype, C, K, T):
     assert TM.mrf_branch_kernel.launches == before + 1 and got.dtype == dtype
     want = TM.mrf_branch_reference(x, w1, b1, w2, b2, (1, 3, 5))
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=MRF_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,K", [(7984, 768, 2000), (333, 32, 100), (129, 768, 130)])
+def test_codebook_kernel_matches_plain_on_card(card, dtype, N, D, K):
+    """N and K off the 128-tiles; K = 100 (the small vocab); D = 32;
+    duplicated centers, where the lower id must win."""
+    rng = np.random.default_rng(N + K)
+    x = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to("cuda", dtype)
+    c = rng.standard_normal((K, D)).astype(np.float32)
+    c[K - 1] = c[3]
+    c[7] = c[3]
+    centers = torch.from_numpy(c).cuda()
+    before = TC.assign_kernel.launches
+    got = TC.assign(x, centers)
+    torch.cuda.synchronize()
+    assert TC.assign_kernel.launches == before + 1 and got.dtype == torch.int32 and got.shape == (N,)
+    want = TC.assign_reference(x, centers)
+    score = x.float() @ centers.T - TC.half_sq_norms(centers)
+    top2 = score.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3 * (top2[:, 0].abs() + 1)
+    assert torch.equal(got[clear], want[clear])
+    assert float((got == want).float().mean()) >= 0.999
+    assert not ((got == 7) | (got == K - 1)).any()
+    near = x[:5].float().clone()
+    near[:] = centers[3] + 1e-3 * near  # these frames lie on the duplicated centers: id 3 wins the exact tie
+    assert TC.assign(near.to(dtype).contiguous(), centers).tolist() == [3] * 5
+
+
+@pytest.mark.cuda
+def test_codebook_kernel_non_finite_frames_on_card(card):
+    """NaN scores win as in torch.argmax (the first id), a frame whose every
+    score is -inf gets id 0, and +inf at two centers picks the lower id."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((300, 32)).astype(np.float32)).cuda()
+    c = rng.standard_normal((130, 32)).astype(np.float32)
+    c[:, :2] = -np.abs(c[:, :2]) - 0.1
+    c[40, 0] = c[77, 0] = 1.0
+    centers = torch.from_numpy(c).cuda()
+    x[0] = float("nan")
+    x[1, 3] = float("nan")
+    x[2] = 0.0
+    x[2, 1] = float("inf")
+    x[3, 0] = float("inf")
+    got = TC.assign_kernel(x, centers, TC.codebook_operands(centers))
+    want = TC.assign_reference(x, centers)
+    assert got[:4].tolist() == [0, 0, 0, 40]
+    assert torch.equal(got, want)

@@ -257,9 +257,17 @@ def test_sample_without_noise_source_raises(cfm_pair):
 
 
 def test_sample_with_duration_prediction_is_not_ported_yet():
-    port = torch_cfm.ConditionalFlowMatchingModel(torch_cfm.CFMConfig(**CFM_KW, predict_duration=True), FLOAT32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.sample(torch.ones(1, 4, dtype=torch.long), 0.5, x0=torch.zeros(1, 4, 8))
+    """Duration prediction is ported now: without ``max_frames`` the sample runs
+    at the largest predicted total, as the JAX package's eager apply does."""
+    _, jmodel, variables = _jax_cfm(seed=2, predict_duration=True)
+    port = _torch_cfm(variables, predict_duration=True)
+    ids = np.array([[3, 5, 7, 9], [2, 4, 0, 0]])
+    frames = int(np.asarray(jmodel.apply(variables, jnp.asarray(ids), method="predict_durations")).sum(axis=1).max())
+    x0 = np.random.default_rng(3).standard_normal((2, max(frames, 1), 8)).astype(np.float32)
+    theirs, jmask = jmodel.apply(variables, jnp.asarray(ids), dt=0.5, x0=jnp.asarray(x0), method="sample")
+    ours, mask = port.sample(torch.from_numpy(ids), 0.5, x0=torch.from_numpy(x0))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **MEL_TOL)
 
 
 def test_mel_pad_value_matches_jax():
