@@ -46,6 +46,11 @@ def init_random_weights(module: nn.Module, generator: torch.Generator) -> None:
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
+def pcm16_encode(waveform: torch.Tensor) -> torch.Tensor:
+    """float waveform -> int16 PCM samples, on the waveform's device."""
+    return torch.round(waveform.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+
+
 def _to_device(module: nn.Module, device: torch.device) -> nn.Module:
     return module.to(device).eval().requires_grad_(False)
 
@@ -177,7 +182,7 @@ class ConditionalFlowMatchingWithHifiGan:
         if mulaw:
             waveform = mulaw_encode(waveform)
         elif pcm16:
-            waveform = torch.round(waveform.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+            waveform = pcm16_encode(waveform)
         return waveform, lengths
 
     def __call__(

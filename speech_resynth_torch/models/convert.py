@@ -4,9 +4,11 @@ The port's own copy of the mapping that speech_resynth_tpu/models/export.py
 applies when it writes an HF-format checkpoint. The trees hold numpy arrays
 (or anything ``np.asarray`` reads); the result loads with
 ``module.load_state_dict`` into ``ConditionalFlowMatchingModel``,
-``HifiGanGenerator`` or ``HubertEncoder``, whose parameter names are the HF
-keys. ``hubert_state_dict_from_hf`` reads an HF ``HubertModel`` state_dict
-(the port's copy of speech_resynth_tpu/models/convert.py:hubert_params).
+``HifiGanGenerator``, ``HubertEncoder`` or ``LlamaLM``, whose parameter
+names are the HF keys. ``hubert_state_dict_from_hf`` and
+``llama_state_dict_from_hf`` read HF ``HubertModel`` and ``LlamaForCausalLM``
+state_dicts (the port's copies of speech_resynth_tpu/models/convert.py:
+hubert_params and llama_params).
 
 Layouts (Flax -> torch):
   Conv1d kernel   (K, I, O) -> (O, I, K)
@@ -156,6 +158,71 @@ def hubert_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         parts[f"{p}.final_layer_norm"] = _ln(layer["ff_norm"])
         i += 1
     return {f"{prefix}.{name}": t for prefix, tensors in parts.items() for name, t in tensors.items()}
+
+
+LLAMA_LAYER_KEYS = (
+    ("q_proj", "self_attn.q_proj"),
+    ("k_proj", "self_attn.k_proj"),
+    ("v_proj", "self_attn.v_proj"),
+    ("o_proj", "self_attn.o_proj"),
+    ("gate_proj", "mlp.gate_proj"),
+    ("up_proj", "mlp.up_proj"),
+    ("down_proj", "mlp.down_proj"),
+)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def unstack_llama_layers(params: Mapping) -> Dict:
+    """The scan layout (one ``layers`` subtree with a leading layer axis) ->
+    the unrolled ``layers_{i}`` layout."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    stacked = params["layers"]
+    n = len(np.asarray(stacked["q_proj"]["kernel"]))
+    for i in range(n):
+        out[f"layers_{i}"] = _map_tree(lambda x, i=i: np.asarray(x)[i], stacked)
+    return out
+
+
+def llama_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``LlamaLM`` params (unrolled ``layers_{i}`` or the stacked scan
+    layout) -> the port's ``LlamaLM`` state_dict, which has the HF keys."""
+    if "layers" in params:
+        params = unstack_llama_layers(params)
+    sd: Dict[str, torch.Tensor] = {
+        "model.embed_tokens.weight": _t(params["embed_tokens"]["embedding"]),
+        "model.norm.weight": _t(params["final_norm"]["weight"]),
+        "lm_head.weight": _dense_w(params["lm_head"]["kernel"]),
+    }
+    i = 0
+    while f"layers_{i}" in params:
+        layer, p = params[f"layers_{i}"], f"model.layers.{i}"
+        sd[f"{p}.input_layernorm.weight"] = _t(layer["input_norm"]["weight"])
+        sd[f"{p}.post_attention_layernorm.weight"] = _t(layer["post_attn_norm"]["weight"])
+        for ours, theirs in LLAMA_LAYER_KEYS:
+            sd[f"{p}.{theirs}.weight"] = _dense_w(layer[ours]["kernel"])
+        i += 1
+    return sd
+
+
+def llama_state_dict_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """HF ``LlamaForCausalLM`` state_dict -> the port's ``LlamaLM`` state_dict:
+    the embedding, the final norm, the LM head and each layer's norms and
+    projections, in f32; other keys (rotary buffers) are dropped."""
+    sd = dict(state_dict)
+    out = {k: _t(_np(sd[k])) for k in ("model.embed_tokens.weight", "model.norm.weight", "lm_head.weight")}
+    i = 0
+    while f"model.layers.{i}.self_attn.q_proj.weight" in sd:
+        p = f"model.layers.{i}"
+        names = ["input_layernorm", "post_attention_layernorm", *(theirs for _, theirs in LLAMA_LAYER_KEYS)]
+        for name in names:
+            out[f"{p}.{name}.weight"] = _t(_np(sd[f"{p}.{name}.weight"]))
+        i += 1
+    return out
 
 
 POS_CONV = "encoder.pos_conv_embed.conv"

@@ -40,6 +40,9 @@ SIGNATURES = {
     "srt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, out, B, C, T, K, n_pairs, d0, d1, d2, t_tile, is_bf16, slope, stream
     "srt_mrf_branch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, w1, b1, w2, b2 (each branch's, concatenated), out, B, C, T, n_branches,
+    # shapes (host int[5 * n_branches]: K, n_pairs, d0, d1, d2), t_tile, is_bf16, slope, stream
+    "srt_mrf_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _P],
     # x^T (D, N), centers^T (D, K), half_sq, packed (scratch), ids, N, D, K, splits, stream
     "srt_codebook_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

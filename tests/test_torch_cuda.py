@@ -128,3 +128,121 @@ def test_codebook_kernel_non_finite_frames_on_card(card):
     want = TC.assign_reference(x, centers)
     assert got[:4].tolist() == [0, 0, 0, 40]
     assert torch.equal(got, want)
+
+
+def _stage_branches(rng, C, dtype):
+    def rand(*shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to("cuda", dtype)
+
+    branches = []
+    for K in (3, 7, 11):
+        w1, w2 = rand(3, C, C, K, scale=1 / np.sqrt(C * K)), rand(3, C, C, K, scale=1 / np.sqrt(C * K))
+        branches.append((w1, rand(3, C, scale=0.01), w2, rand(3, C, scale=0.01), (1, 3, 5)))
+    return branches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T", [(64, 50), (64, 1000), (32, 1000), (16, 137), (16, 2049)])
+def test_stage_kernel_matches_plain_on_card(card, dtype, C, T):
+    """K3: T below one tile and not a multiple of it, at each stage width."""
+    rng = np.random.default_rng(C + T)
+    x = torch.from_numpy(rng.standard_normal((2, C, T)).astype(np.float32) * 0.5).to("cuda", dtype)
+    branches = _stage_branches(rng, C, dtype)
+    before = TM.mrf_stage_kernel.launches
+    got = TM.mrf_stage(x, branches)
+    torch.cuda.synchronize()
+    assert TM.mrf_stage_kernel.launches == before + 1 and got.dtype == dtype
+    want = TM.mrf_stage_reference(x, branches)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=MRF_TOL[dtype])
+
+
+def _vocoder(policy):
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.hifigan import HifiGanConfig, HifiGanGenerator
+
+    gen = HifiGanGenerator(HifiGanConfig(), policy)
+    init_random_weights(gen, torch.Generator().manual_seed(0))
+    return gen.to("cuda").eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_fused_generator_matches_per_branch_on_card(card, dtype):
+    """The production vocoder with stage fusion on: 3 K3 launches and no K2,
+    and the waveform of the per-branch route (9 K2 launches). In bf16 the
+    stage rounds the branch mean once where the route rounds each branch, a
+    few bf16 ulps through the later stages (atol 2e-2 on O(1) samples)."""
+    from speech_resynth_torch.core.precision import BF16_INFERENCE, FLOAT32
+
+    gen = _vocoder(FLOAT32 if dtype == torch.float32 else BF16_INFERENCE)
+    mel = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 60, 80)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        k2, k3 = TM.mrf_branch_kernel.launches, TM.mrf_stage_kernel.launches
+        off = gen(mel)
+        assert (TM.mrf_branch_kernel.launches - k2, TM.mrf_stage_kernel.launches - k3) == (9, 0)
+        with TM.mrf_stage_fusion(True):
+            on = gen(mel)
+        torch.cuda.synchronize()
+        assert (TM.mrf_branch_kernel.launches - k2, TM.mrf_stage_kernel.launches - k3) == (9, 3)
+    torch.testing.assert_close(on, off, rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_short_stream_matches_batch_on_card(card):
+    """The production vocoder in f32 (TF32 off), streamed in irregular pushes
+    with stage fusion on: the batch run, up to summation order."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.pipeline.streaming import StreamingVocoder
+
+    gen = _vocoder(FLOAT32)
+    mel = np.random.default_rng(4).standard_normal((130, 80)).astype(np.float32)
+    with torch.no_grad():
+        want = gen(torch.from_numpy(mel[None]).cuda())[0].cpu().numpy()
+    with TM.mrf_stage_fusion(True):
+        sv = StreamingVocoder(gen, chunk_frames=20)
+        parts, i = [], 0
+        for step in (7, 33, 1, 50, 39):
+            parts.append(sv.push(mel[i : i + step]))
+            i += step
+        parts.append(sv.flush())
+    got = np.concatenate(parts)
+    assert got.shape == want.shape and sv.device_calls >= 3
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_codebook_kernel_at_the_continuation_codebook_on_card(card):
+    """K4 with the speech LM's encoder codebook, 100 centers of 768: one
+    128-center tile holds them all, most of it padding."""
+    rng = np.random.default_rng(100)
+    x = torch.from_numpy(rng.standard_normal((499, 768)).astype(np.float32)).cuda()
+    centers = torch.from_numpy(rng.standard_normal((100, 768)).astype(np.float32)).cuda()
+    got = TC.assign(x, centers)
+    want = TC.assign_reference(x, centers)
+    score = x @ centers.T - TC.half_sq_norms(centers)
+    top2 = score.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3 * (top2[:, 0].abs() + 1)
+    assert torch.equal(got[clear], want[clear]) and int(got.max()) < 100
+
+
+@pytest.mark.cuda
+def test_llama_full_forward_matches_cpu_on_card(card):
+    """The LM's scoring forward (K1 causal, d = 64, ragged key mask) in f32
+    on the card against the plain path on the CPU."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.llama import LlamaConfig, LlamaLM
+
+    cfg = LlamaConfig(vocab_size=300, hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2)
+    lm = LlamaLM(cfg, FLOAT32)
+    init_random_weights(lm, torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.default_rng(5).integers(2, 300, (2, 70)))
+    mask = torch.arange(70)[None, :] < torch.tensor([[70], [41]])
+    with torch.no_grad():
+        on_cpu, _ = lm.eval()(ids, attention_mask=mask)
+        before = TA.flash_attention.launches
+        on_card, _ = lm.cuda()(ids.cuda(), attention_mask=mask.cuda())
+        torch.cuda.synchronize()
+    assert TA.flash_attention.launches == before + cfg.num_hidden_layers
+    torch.testing.assert_close(on_card.cpu()[mask], on_cpu[mask], rtol=0, atol=1e-3)
