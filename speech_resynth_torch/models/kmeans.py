@@ -9,12 +9,12 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops.codebook import assign, codebook_operands
+from ..ops.codebook import Operands, assign, codebook_operands
 
 
 @dataclasses.dataclass
@@ -23,8 +23,8 @@ class KMeansQuantizer:
     fixed once the quantizer is built (``to`` builds a new one)."""
 
     centers: torch.Tensor
-    # on the card: the kernel's transposed codebook and half squared norms, made once
-    _operands: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+    # on the card: the kernel's TF32 codebook halves and half squared norms, made once
+    _operands: Optional[Operands] = dataclasses.field(
         default=None, init=False, repr=False, compare=False
     )
 

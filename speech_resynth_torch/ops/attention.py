@@ -10,7 +10,7 @@ a CPU tensor, and nothing else.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -19,6 +19,12 @@ from .build import check_launch, kernel_library
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 FLASH_HEAD_DIMS = (64, 128)
+KEY_TILE = 64  # csrc/flash_attention.cu BK: keys per tile
+QUERY_BLOCK = 64  # queries per block of the bf16 kernel (one consumer warpgroup)
+# the kernel keeps a flag per key and lists of its key tiles in shared memory
+# (76 bytes per 64-key tile), which caps N_k: ~104 000 keys for f32 at d = 128,
+# more for the other variants
+MAX_KEYS = 100_000
 
 
 def attention_reference(
@@ -53,6 +59,8 @@ def _check_flash_args(q, k, v, mask, causal) -> None:
     if causal and q.shape[2] > k.shape[2]:
         # queries past the last key would see no allowed key at all
         raise ValueError(f"flash_attention requires q_len <= k_len when causal, got {q.shape[2]} > {k.shape[2]}")
+    if k.shape[2] > MAX_KEYS:
+        raise ValueError(f"flash_attention takes at most {MAX_KEYS} keys (its per-key flags live in shared memory), got {k.shape[2]}")
     if mask is not None and (mask.dtype != torch.bool or mask.shape != (q.shape[0], k.shape[2])):
         raise ValueError(f"mask must be bool (B, Nk) = {(q.shape[0], k.shape[2])}, got {mask.dtype} {tuple(mask.shape)}")
     tensors = (q, k, v) if mask is None else (q, k, v, mask)
@@ -65,6 +73,41 @@ def _check_flash_args(q, k, v, mask, causal) -> None:
         raise ValueError("flash_attention launches a CUDA kernel: every tensor must be on the card")
 
 
+def key_tiles(mask_row: Optional[torch.Tensor], q_len: int, k_len: int, q0: int, q_rows: int, causal: bool) -> List[int]:
+    """The key tiles (of ``KEY_TILE`` keys) the kernel visits for queries
+    [q0, q0 + q_rows) of one batch row (``mask_row`` (N_k,) bool or None):
+    those holding a valid key, and in causal mode only those at or below the
+    last query's diagonal; every tile when some query has no valid allowed
+    key (then its output is the uniform mean over all N_k keys). The host
+    mirror of ``build_tile_list`` in csrc/flash_attention.cu."""
+    n_tiles = -(-k_len // KEY_TILE)
+    valid = torch.ones(k_len, dtype=torch.bool) if mask_row is None else mask_row.cpu()
+    idx = torch.nonzero(valid).flatten()
+    first = int(idx[0]) if len(idx) else k_len
+    offset = k_len - q_len
+    if first >= k_len or (causal and first > q0 + offset):
+        return list(range(n_tiles))
+    live = torch.zeros(n_tiles, dtype=torch.bool)
+    live[idx // KEY_TILE] = True
+    q_last = min(q0 + q_rows, q_len) - 1
+    return [t for t in range(n_tiles) if live[t] and (not causal or t * KEY_TILE <= q_last + offset)]
+
+
+def live_tile_share(mask: Optional[torch.Tensor], batch: int, q_len: int, k_len: int, causal: bool, q_rows: int) -> float:
+    """The share of (query block, key tile) pairs the kernel visits, over the
+    batch rows of ``mask`` (B, N_k) (all keys valid when None), for blocks of
+    ``q_rows`` queries: what tile skipping leaves of the work at this input."""
+    n_tiles = -(-k_len // KEY_TILE)
+    mask = None if mask is None else mask.cpu()
+    visited = total = 0
+    for b in range(batch):
+        row = None if mask is None else mask[b]
+        for q0 in range(0, q_len, q_rows):
+            visited += len(key_tiles(row, q_len, k_len, q0, q_rows, causal))
+            total += n_tiles
+    return visited / total
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -73,7 +116,8 @@ def flash_attention(
     causal: bool = False,
 ) -> torch.Tensor:
     """Launch the flash-attention kernel on CUDA tensors (B, H, N, D), D in
-    (64, 128), f32 or bf16. Output in q's dtype. Raises on anything else."""
+    (64, 128), f32 or bf16, N_k at most ``MAX_KEYS``. Output in q's dtype.
+    Raises on anything else."""
     _check_flash_args(q, k, v, mask, causal)
     b, h, q_len, d = q.shape
     out = torch.empty_like(q)
@@ -91,7 +135,7 @@ def flash_attention(
         int(q.dtype == torch.bfloat16),
         int(causal),
         1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch._C._cuda_getCurrentRawStream(q.device.index),  # the current stream, without a Stream object
     )
     check_launch("flash_attention", err)
     flash_attention.launches += 1

@@ -5,8 +5,10 @@ source, all started together) and linked into one shared library with a
 plain C interface, which ``ctypes`` loads. Nothing here includes PyTorch's
 headers, so a cold build takes seconds. The library goes to
 ``<repo>/build/torch_kernels/``, which ``.gitignore`` lists (``build/``); its
-file name carries a hash of the sources and flags, so an edited source is
-always rebuilt.
+file name carries a hash of the sources, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is always rebuilt. The TMA
+tensor maps come from the CUDA driver through ``cudaGetDriverEntryPointByVersion``,
+so the link needs no ``-lcuda``.
 
 Nothing is built or loaded at import time: the first kernel launch calls
 :func:`kernel_library`.
@@ -43,8 +45,8 @@ SIGNATURES = {
     # x, w1, b1, w2, b2 (each branch's, concatenated), out, B, C, T, n_branches,
     # shapes (host int[5 * n_branches]: K, n_pairs, d0, d1, d2), t_tile, is_bf16, slope, stream
     "srt_mrf_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _P],
-    # x^T (D, N), centers^T (D, K), half_sq, packed (scratch), ids, N, D, K, splits, stream
-    "srt_codebook_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x (N, D), c_hi (K, D), c_lo (K, D), half_sq, packed (scratch), ids, N, D, K, x_is_bf16, stream
+    "srt_codebook_assign": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -57,7 +59,7 @@ def _nvcc() -> str:
 
 def cached_library(stem: str, sources: Sequence[Path], flags: Sequence[str], compile_to: Callable[[Path], None]) -> Path:
     """``BUILD_DIR/<stem>_<hash>.so``, the hash taken over ``flags`` and the
-    sources: reused when it exists, else ``compile_to(tmp)`` writes it to a
+    sources (every file the build reads): reused when it exists, else ``compile_to(tmp)`` writes it to a
     temporary path that then replaces it atomically, so a concurrent loader
     never sees a partial file."""
     digest = hashlib.sha256(" ".join(flags).encode())
@@ -99,9 +101,11 @@ def _nvcc_build(sources: Sequence[Path], out: Path) -> None:
 
 def build_library() -> Path:
     """Compile every ``csrc/*.cu`` (in parallel) and link them; returns the
-    library path. Reuses an existing library built from identical sources."""
+    library path. Reuses an existing library built from identical sources and
+    headers."""
     sources = sorted(CSRC.glob("*.cu"))
-    return cached_library("libsrt_kernels", sources, NVCC_FLAGS, lambda out: _nvcc_build(sources, out))
+    headers = sorted(CSRC.glob("*.cuh"))
+    return cached_library("libsrt_kernels", sources + headers, NVCC_FLAGS, lambda out: _nvcc_build(sources, out))
 
 
 def kernel_library() -> ctypes.CDLL:

@@ -6,8 +6,10 @@ the first (lowest) id winning a tie. ``assign_reference`` is the plain
 PyTorch version; ``assign_kernel`` launches ``csrc/codebook.cu`` on CUDA
 tensors; ``assign`` is what the quantizer calls: the kernel for a CUDA
 tensor, the plain version for a CPU tensor, and nothing else. The kernel
-reads the codebook transposed, with its half squared norms beside it
-(``codebook_operands``); a quantizer makes those once, not per call.
+runs split TF32 (3xTF32) on the tensor cores: it reads the codebook as its
+two TF32 halves, with the half squared norms beside them
+(``codebook_operands``); a quantizer makes those once, not per call. Frames
+are read as they are, f32 or bf16, and split inside the kernel.
 """
 
 from __future__ import annotations
@@ -17,13 +19,6 @@ from typing import Optional, Tuple
 import torch
 
 from .build import check_launch, kernel_library
-
-# Blocks the kernel keeps in flight per SM (its __launch_bounds__): a frame
-# tile's center tiles are split over grid.y until the grid covers the card
-# about this many times.
-BLOCKS_PER_SM = 2
-FRAME_TILE = 128  # csrc/codebook.cu TN
-CENTER_TILE = 128  # csrc/codebook.cu TC
 
 
 def half_sq_norms(centers: torch.Tensor) -> torch.Tensor:
@@ -38,22 +33,28 @@ def assign_reference(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.argmax(score, dim=-1).to(torch.int32)
 
 
-def codebook_operands(centers: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The codebook as the kernel reads it: centers^T (D, K) f32, contiguous
-    (k-major, as the TPU wrapper transposes it), and |c|^2 / 2 (K,) f32."""
-    return centers.float().t().contiguous(), half_sq_norms(centers)
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value, ties away from zero, as PTX
+    ``cvt.rna.tf32.f32`` rounds: the low 13 mantissa bits rounded off
+    through the int32 view (finite inputs)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _splits(device: torch.device, n: int, k: int) -> int:
-    row_tiles = -(-n // FRAME_TILE)
-    center_tiles = -(-k // CENTER_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(center_tiles, -(-BLOCKS_PER_SM * sms // row_tiles)))
+def codebook_operands(centers: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The codebook as the kernel reads it: its TF32 halves c_hi and c_lo,
+    (K, D) f32 each, contiguous (c_hi + c_lo is c to ~2^-21 relative), and
+    |c|^2 / 2 (K,) f32."""
+    c = centers.float().contiguous()
+    c_hi = tf32_round(c)
+    c_lo = tf32_round(torch.where(torch.isfinite(c_hi), c - c_hi, 0.0))  # a non-finite value is all hi
+    return c_hi, c_lo, half_sq_norms(centers)
 
 
-def assign_kernel(
-    x: torch.Tensor, centers: torch.Tensor, operands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-) -> torch.Tensor:
+Operands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def assign_kernel(x: torch.Tensor, centers: torch.Tensor, operands: Optional[Operands] = None) -> torch.Tensor:
     """Launch the assignment kernel: x (N, D) f32 or bf16 and centers (K, D)
     f32, contiguous, on the card -> ids (N,) int32. Raises on anything else.
     ``operands`` is ``codebook_operands(centers)``, made here when omitted."""
@@ -72,22 +73,27 @@ def assign_kernel(
     ids = torch.empty(n, dtype=torch.int32, device=x.device)
     if n == 0:
         return ids
-    ct, half_sq = codebook_operands(centers) if operands is None else operands
-    if ct.shape != (d, k) or half_sq.shape != (k,) or ct.device != x.device or not ct.is_contiguous():
-        raise ValueError(f"assign_kernel wants operands (D, K) and (K,) on the card; got {tuple(ct.shape)}, {tuple(half_sq.shape)}")
-    xt = x.float().t().contiguous()  # k-major as well: x^T (D, N) in f32 (bf16 widens exactly)
+    if d % 8 or x.data_ptr() % 16:
+        raise ValueError(f"assign_kernel copies rows in 16-byte pieces: wants D % 8 == 0 and 16-byte aligned x; got D = {d}")
+    c_hi, c_lo, half_sq = codebook_operands(centers) if operands is None else operands
+    for t in (c_hi, c_lo):
+        if t.shape != (k, d) or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"assign_kernel wants operands (K, D) f32 contiguous on the card; got {tuple(t.shape)} {t.dtype}")
+    if half_sq.shape != (k,) or half_sq.device != x.device:
+        raise ValueError(f"assign_kernel wants half_sq (K,) on the card; got {tuple(half_sq.shape)}")
     packed = torch.empty(n, dtype=torch.int64, device=x.device)  # (score bits, ~id) of the running best
     err = kernel_library().srt_codebook_assign(
-        xt.data_ptr(),
-        ct.data_ptr(),
+        x.data_ptr(),
+        c_hi.data_ptr(),
+        c_lo.data_ptr(),
         half_sq.data_ptr(),
         packed.data_ptr(),
         ids.data_ptr(),
         n,
         d,
         k,
-        _splits(x.device, n, k),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16),
+        torch._C._cuda_getCurrentRawStream(x.device.index),  # the current stream, without a Stream object
     )
     check_launch("codebook_assign", err)
     assign_kernel.launches += 1
@@ -97,9 +103,7 @@ def assign_kernel(
 assign_kernel.launches = 0
 
 
-def assign(
-    x: torch.Tensor, centers: torch.Tensor, operands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-) -> torch.Tensor:
+def assign(x: torch.Tensor, centers: torch.Tensor, operands: Optional[Operands] = None) -> torch.Tensor:
     """Nearest-center ids of frames (..., D): the kernel on the card, the plain
     version for CPU tensors."""
     if x.is_cuda:

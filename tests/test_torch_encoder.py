@@ -129,10 +129,16 @@ def test_assign_kernel_refuses_cpu_tensors():
 
 
 def test_codebook_operands_are_the_transposed_codebook_and_its_half_norms():
+    """The kernel's codebook operands: its TF32 halves (K, D), each with the
+    low 13 mantissa bits zero, summing back to the centers within f32's own
+    rounding (2^-21 relative, the size of the dropped lo bits), and the half
+    squared norms."""
     _, c = _frames_and_centers(1, 24, 130, seed=6)
-    ct, half_sq = torch_codebook.codebook_operands(torch.from_numpy(c))
-    assert ct.shape == (24, 130) and ct.is_contiguous() and ct.dtype == torch.float32
-    np.testing.assert_array_equal(ct.numpy(), c.T)
+    c_hi, c_lo, half_sq = torch_codebook.codebook_operands(torch.from_numpy(c))
+    for t in (c_hi, c_lo):
+        assert t.shape == (130, 24) and t.is_contiguous() and t.dtype == torch.float32
+        assert not (t.view(torch.int32) & 0x1FFF).any()
+    np.testing.assert_allclose((c_hi + c_lo).numpy(), c, rtol=2.0**-21, atol=0)
     np.testing.assert_allclose(half_sq.numpy(), 0.5 * np.sum(c.astype(np.float64) ** 2, axis=-1), rtol=1e-6)
     assert KMeansQuantizer(torch.from_numpy(c))._operands is None  # made only for a codebook on the card
 
