@@ -293,7 +293,8 @@ def mrf_operands(torch, gen, C, T, K, dtype, B):
 
 
 def mrf_check(torch, M, gen, C, T, K, B) -> dict:
-    """K2 against mrf_branch_reference at one (B, C, T, K), bf16 and f32."""
+    """K2 against mrf_branch_reference at one (B, C, T, K), bf16 and f32, with
+    the tile its C entry plans there."""
     errs = {}
     for name in DTYPES:
         args = mrf_operands(torch, gen, C, T, K, getattr(torch, name), B)
@@ -303,49 +304,77 @@ def mrf_check(torch, M, gen, C, T, K, B) -> dict:
         errs[name] = max_err(torch, got, want)
         if not torch.isfinite(got.float()).all() or errs[name] > MRF_TOL[name]:
             fail(f"mrf_branch B={B} C={C} T={T} K={K} {name}: max abs err {errs[name]} > {MRF_TOL[name]}")
-    return {"B": B, "C": C, "T": T, "K": K, "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"]}
+    t_tile, window, shared, _ = M.kernel_branch_plan(B, C, T, K, MRF_DILATIONS, 2)
+    return {"B": B, "C": C, "T": T, "K": K, "t_tile": t_tile, "window": window, "shared_bytes": shared,
+            "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"]}
 
 
-def mrf_path(torch, M, gen, voc_cfg, path: str, frames: int) -> dict:
-    """K2 at the nine launches of one batch of ``frames`` frames: checks, and
-    times in bf16 summed over the batch."""
+def cudnn_chain(torch, F, x, w1, b1, w2, b2):
+    """The branch as six bf16 cuDNN convs with their lrelu and adds: a
+    yardstick of speed only, with other numerics (it rounds the residual to
+    bf16 at every step, where K2 keeps it in f32). The port never calls it."""
+    K = w1.shape[-1]
+    for j, d in enumerate(MRF_DILATIONS):
+        h = F.conv1d(F.leaky_relu(x, 0.1), w1[j], b1[j], padding=(K - 1) * d // 2, dilation=d)
+        x = x + F.conv1d(F.leaky_relu(h, 0.1), w2[j], b2[j], padding=(K - 1) // 2)
+    return x
+
+
+def mrf_path(torch, F, M, gen, voc_cfg, path: str, frames: int, batch: int = SERVE_BATCH) -> dict:
+    """K2 at the nine launches of one vocoder call on ``batch`` rows of
+    ``frames`` frames: checks, and bf16 times summed over the call (host
+    loop ``ms``, device ``graph_ms``, the plain version, and the cuDNN chain
+    as a yardstick)."""
     shapes = []
-    totals = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    keys = ("ms", "graph_ms", "cudnn_chain_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")
+    totals = dict.fromkeys(keys, 0.0)
     for C, T, K in mrf_shapes(voc_cfg, frames):
-        check = mrf_check(torch, M, gen, C, T, K, SERVE_BATCH)
-        args = mrf_operands(torch, gen, C, T, K, torch.bfloat16, SERVE_BATCH)
+        check = mrf_check(torch, M, gen, C, T, K, batch)
+        args = mrf_operands(torch, gen, C, T, K, torch.bfloat16, batch)
         times = timed(
             torch,
             lambda: M.mrf_branch_kernel(*args, MRF_DILATIONS),
             lambda: M.mrf_branch_reference(*args, MRF_DILATIONS),
             None,
-            nbytes=2 * SERVE_BATCH * C * T * 2 + 2 * 3 * (C * C * K + C) * 2,
-            flops=12.0 * K * C * C * T * SERVE_BATCH,
+            nbytes=2 * batch * C * T * 2 + 2 * 3 * (C * C * K + C) * 2,
+            flops=12.0 * K * C * C * T * batch,
             peak_flops=PEAK_BF16_FLOPS,
-            iters=(5, 3, 0),
+            iters=(10, 3, 0) if batch == 1 else (5, 3, 0),
         )
+        times["graph_ms"] = graph_ms(torch, lambda: M.mrf_branch_kernel(*args, MRF_DILATIONS), iters=10, reps=3)
+        times["cudnn_chain_ms"] = graph_ms(torch, lambda: cudnn_chain(torch, F, *args), iters=10, reps=3)
         shapes.append({**check, **times})
         for key in totals:
             totals[key] += times[key]
     record = {
-        "path": path, "frames": frames, "per": "batch: nine launches", "dtype": "bfloat16",
+        "path": path, "frames": frames, "batch": batch, "per": "vocoder call: nine launches", "dtype": "bfloat16",
         "max_abs_err": max(c["max_abs_err"] for c in shapes), "f32_max_abs_err": max(c["f32_max_abs_err"] for c in shapes),
         "tol": MRF_TOL, **totals, "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations",
-        "library_ms": None, "shapes": shapes,
+        "library_ms": None, "cudnn_chain": "six bf16 cuDNN convs, lrelu and adds: a yardstick, other numerics",
+        "shapes": shapes,
     }
     print(json.dumps({"phase": "mrf_branch", **record}))
     return record
 
 
-def mrf_phase(torch, M, voc_cfg) -> list:
-    """K2 against mrf_branch_reference at tile edges, then at every launch of
-    a served batch and of a plain-config resynthesis batch."""
+def mrf_phase(torch, F, M, voc_cfg, ctx: int) -> list:
+    """K2 against mrf_branch_reference at tile edges (T % 8 = 4, T odd, T
+    below one tile and one tile + 1 of the widest window, short rows whose
+    plan narrows the tile), then at every launch of a served batch, of a
+    plain-config resynthesis batch, of the streaming windows (B = 1, stage
+    fusion off) and of the continuation decoder's 512 frames (B = 1)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    edges = [mrf_check(torch, M, gen, C, T, K, 3) for C, T, K in ((64, 50, 11), (32, 1000, 7), (16, 2049, 3))]
-    print(json.dumps({"phase": "mrf_branch_checks", "case": "T below / not a multiple of the tile", "cases": edges, "tol": MRF_TOL}))
+    edge_shapes = ((3, 64, 50, 11), (3, 32, 1000, 7), (3, 16, 2049, 3), (2, 64, 1004, 11), (2, 64, 1001, 7),
+                   (2, 32, 999, 3), (1, 64, 264, 11), (1, 64, 265, 11), (1, 16, 1513, 3), (2, 16, 30, 11))
+    edges = [mrf_check(torch, M, gen, C, T, K, B) for B, C, T, K in edge_shapes]
+    print(json.dumps({"phase": "mrf_branch_checks", "case": "T % 8 = 4, T odd, T below / at one tile + 1, narrow plans",
+                      "cases": edges, "tol": MRF_TOL}))
     records = [
-        mrf_path(torch, M, gen, voc_cfg, "serving", BUCKET),
-        mrf_path(torch, M, gen, voc_cfg, "resynth decoder (plain config)", RESYNTH_FRAMES),
+        mrf_path(torch, F, M, gen, voc_cfg, "serving", BUCKET),
+        mrf_path(torch, F, M, gen, voc_cfg, "resynth decoder (plain config)", RESYNTH_FRAMES),
+        mrf_path(torch, F, M, gen, voc_cfg, "streaming window", STREAM_CHUNK + 2 * ctx, 1),
+        mrf_path(torch, F, M, gen, voc_cfg, "streaming first window", STREAM_CHUNK + ctx, 1),
+        mrf_path(torch, F, M, gen, voc_cfg, "continuation decoder", 512, 1),
     ]
     torch.cuda.synchronize()
     return records
@@ -1313,7 +1342,7 @@ def main() -> int:
     voc_cfg = HifiGanConfig()
     ctx = context_frames_for(voc_cfg)
     k1 = attention_phase(torch, F, A)
-    k2 = mrf_phase(torch, M, voc_cfg)
+    k2 = mrf_phase(torch, F, M, voc_cfg, ctx)
     k3 = stage_phase(torch, M, voc_cfg, ctx)
     k4 = codebook_phase(torch, C)
     print(json.dumps({"phase": "kernels_checked", "kernels": ["flash_attention", "mrf_branch", "mrf_stage", "codebook_assign"]}))
@@ -1334,7 +1363,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(9)
     for frames in sorted(set(resynth["duration_prediction"]["decoder_frames"])):
         k1.append(attention_shape(torch, F, A, gen, "resynth decoder (duration config)", ENC_BATCH, 2, frames, 128, 1, frames))
-        k2.append(mrf_path(torch, M, gen, voc_cfg, "resynth decoder (duration config)", frames))
+        k2.append(mrf_path(torch, F, M, gen, voc_cfg, "resynth decoder (duration config)", frames))
     timed_windows = {STREAM_CHUNK + ctx, STREAM_CHUNK + 2 * ctx}
     for frames in sorted(set(streaming[True]["windows"]) - timed_windows):
         k3.append(stage_path(torch, M, gen, voc_cfg, "streaming flush window", frames, 1))
@@ -1433,7 +1462,7 @@ def main() -> int:
     kernels = [
         entry("flash_attention", "speech_resynth_torch/ops/csrc/flash_attention.cu", "speech_resynth_tpu/ops/attention.py:81",
               k1, resynth_batch, [(record(k1, plain_decoder), 64), (record(k1, resynth_encoder), 11)]),
-        entry("mrf_branch", "speech_resynth_torch/ops/csrc/fused_mrf.cu", "speech_resynth_tpu/ops/fused_mrf.py:378",
+        entry("mrf_branch", "speech_resynth_torch/ops/csrc/mrf_branch.cu", "speech_resynth_tpu/ops/fused_mrf.py:378",
               k2, resynth_batch + " (nine launches)", [(record(k2, plain_decoder), 1)]),
         entry("mrf_stage", "speech_resynth_torch/ops/csrc/fused_mrf.cu", "speech_resynth_tpu/ops/fused_mrf.py:452",
               k3, f"one vocoder call on a served batch of {SERVE_BATCH} (three launches; library_ms is the per-branch "

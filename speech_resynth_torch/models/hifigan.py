@@ -6,9 +6,10 @@ Counterpart of speech_resynth_tpu/models/hifigan.py (``HifiGanConfig``,
 want them; the public input is the JAX package's (B, T, mel) log-mel and
 the output a (B, (T-1)*320 + 400) waveform at the default config.
 
-The narrow MRF stages (C <= 64, odd kernel size) run each branch through
+The narrow MRF stages whose branches K2 takes (``mrf_branch_fits``: C in
+16, 32, 64, odd kernel size) run each branch through
 ``ops.fused_mrf.mrf_branch``, which is the hand-written kernel K2 on the card,
-and the mean of the branches in PyTorch; wider stages run the plain conv
+and the mean of the branches in PyTorch; other stages run the plain conv
 chain. While ``ops.fused_mrf.MRF_STAGE_FUSION`` is set (``mrf_stage_fusion``),
 a stage that K3 takes (``stage_fusion_eligible``) runs whole through
 ``ops.fused_mrf.mrf_stage`` instead: one launch for the branches and their
@@ -28,7 +29,7 @@ from torch import nn
 
 from ..core.precision import DEFAULT, Policy
 from ..ops import fused_mrf
-from ..ops.fused_mrf import LRELU_SLOPE, mrf_branch, mrf_stage, mrf_stage_fits
+from ..ops.fused_mrf import LRELU_SLOPE, mrf_branch, mrf_branch_fits, mrf_stage, mrf_stage_fits
 
 FUSED_MAX_CHANNELS = 64
 
@@ -99,8 +100,10 @@ class ResidualBlock(nn.Module):
         self.policy = policy
         self.slope = slope
         self.dilations = tuple(dilations)
-        self.fused = channels <= FUSED_MAX_CHANNELS and kernel_size % 2 == 1
         pd = policy.param_dtype
+        itemsize = torch.empty((), dtype=policy.compute_dtype).element_size()
+        # the branch gate of generator_apply_fused: K2 takes the branch (C <= 64 and an odd kernel among it)
+        self.fused = mrf_branch_fits(channels, kernel_size, self.dilations, itemsize)
         self.convs1 = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size, dilation=d, padding=(kernel_size * d - d) // 2, dtype=pd)
             for d in self.dilations

@@ -3,8 +3,8 @@
 Counterpart of speech_resynth_tpu/ops/attention.py. ``attention_reference``
 is the plain PyTorch version and defines the semantics; ``flash_attention``
 launches ``csrc/flash_attention.cu`` on CUDA tensors; ``dot_product_attention``
-is what the models call: the kernel for a CUDA tensor, the plain version for
-a CPU tensor, and nothing else.
+is what the models call: the kernel for a CUDA tensor whose shapes it takes
+(``flash_supported``), the plain version otherwise.
 """
 
 from __future__ import annotations
@@ -145,6 +145,16 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def flash_supported(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor], causal: bool) -> bool:
+    """Whether the flash kernel takes these shapes: head dim in
+    ``FLASH_HEAD_DIMS``, at most ``MAX_KEYS`` keys, q_len <= k_len when
+    causal. Decided before any launch, as the JAX package routes the shapes
+    its kernel does not take to its plain version; anything else that is
+    wrong (dtype, rank, mask) makes ``flash_attention`` raise."""
+    q_len, k_len = q.shape[-2], k.shape[-2]
+    return q.shape[-1] in FLASH_HEAD_DIMS and k_len <= MAX_KEYS and not (causal and q_len > k_len)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -152,8 +162,10 @@ def dot_product_attention(
     mask: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Attention over (B, H, N, D): the flash kernel on the card, the plain
-    version for CPU tensors."""
-    if q.is_cuda:
-        return flash_attention(q, k, v, mask, causal)
+    """Attention over (B, H, N, D): the flash kernel for CUDA tensors it
+    takes (``flash_supported``), the plain version for the rest and for CPU
+    tensors."""
+    if q.is_cuda and flash_supported(q, k, mask, causal):
+        mask = None if mask is None else mask.contiguous()
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, causal)
     return attention_reference(q, k, v, mask, causal)

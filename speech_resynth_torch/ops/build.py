@@ -40,8 +40,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, mask (nullable), out, B, H, Nq, Nk, D, is_bf16, causal, scale, stream
     "srt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # x, w1, b1, w2, b2, out, B, C, T, K, n_pairs, d0, d1, d2, t_tile, is_bf16, slope, stream
-    "srt_mrf_branch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, w1, b1, w2, b2, out, B, C, T, K, n_pairs, d0, d1, d2, is_bf16, slope, stream (the tile is planned in C)
+    "srt_mrf_branch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # B, C, T, K, n_pairs, d0, d1, d2, is_bf16, plan (host int[4]: t_tile, window, shared bytes, SMs)
+    "srt_mrf_branch_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, b2 (each branch's, concatenated), out, B, C, T, n_branches,
     # shapes (host int[5 * n_branches]: K, n_pairs, d0, d1, d2), t_tile, is_bf16, slope, stream
     "srt_mrf_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _P],

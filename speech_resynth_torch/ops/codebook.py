@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .build import check_launch, kernel_library
 
@@ -103,10 +104,24 @@ def assign_kernel(x: torch.Tensor, centers: torch.Tensor, operands: Optional[Ope
 assign_kernel.launches = 0
 
 
+def pad_depth(x: torch.Tensor, centers: torch.Tensor, operands: Optional[Operands] = None):
+    """x (N, D), centers (K, D) and their operands with D padded by zero
+    columns up to a multiple of 8, as the kernel copies rows in 16-byte
+    pieces (``assign_pallas`` pads D the same way). Exact: a zero column adds
+    0 to every dot product and every norm."""
+    pad = -x.shape[-1] % 8
+    if pad == 0:
+        return x, centers, operands
+    c_hi, c_lo, half_sq = codebook_operands(centers) if operands is None else operands  # norms of the true rows
+    operands = (F.pad(c_hi, (0, pad)), F.pad(c_lo, (0, pad)), half_sq)
+    return F.pad(x, (0, pad)), F.pad(centers, (0, pad)), operands
+
+
 def assign(x: torch.Tensor, centers: torch.Tensor, operands: Optional[Operands] = None) -> torch.Tensor:
-    """Nearest-center ids of frames (..., D): the kernel on the card, the plain
-    version for CPU tensors."""
+    """Nearest-center ids of frames (..., D): the kernel on the card (D
+    padded to a multiple of 8), the plain version for CPU tensors."""
     if x.is_cuda:
         shape = x.shape[:-1]
-        return assign_kernel(x.reshape(-1, x.shape[-1]).contiguous(), centers.contiguous(), operands).reshape(shape)
+        flat, centers, operands = pad_depth(x.reshape(-1, x.shape[-1]), centers, operands)
+        return assign_kernel(flat.contiguous(), centers.contiguous(), operands).reshape(shape)
     return assign_reference(x, centers)

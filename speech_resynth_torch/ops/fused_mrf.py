@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -26,12 +27,22 @@ from .build import check_launch, kernel_library
 
 LRELU_SLOPE = 0.1
 
-# Kernel geometry (csrc/fused_mrf.cu): a block's window holds WINDOW_ELEMS / C
-# columns of all C channels; the channel counts it is instantiated for.
+# K3's geometry (csrc/fused_mrf.cu; also K2's f32 variant): a block's window
+# holds WINDOW_ELEMS / C columns of all C channels; the channel counts both
+# kernels are instantiated for.
 WINDOW_ELEMS = 16384
 KERNEL_CHANNELS = (16, 32, 64)
 MAX_SHARED_BYTES = 232_448  # what one Hopper block may use
 MAX_STAGE_BRANCHES = 4  # csrc/fused_mrf.cu: MAX_BRANCHES
+
+# K2's widest bf16 block (csrc/mrf_branch.cu), which decides whether K2
+# takes a branch: BRANCH_WARPGROUPS consumer warpgroups, each holding 128 / C
+# M tiles of M_TILE window columns, so a window of 24 576 / C columns; a ring
+# of BRANCH_STAGES taps of weights, each C rows of 128 bytes. The tile a
+# launch uses is planned in the C entry (``kernel_branch_plan`` reads it).
+BRANCH_WARPGROUPS = 3
+BRANCH_STAGES = 4
+M_TILE = 64
 
 # Whole-stage fusion (K3) in the generator. Off by default, as the JAX package
 # ships it; whether this card wants it on is for a measurement to decide.
@@ -108,12 +119,13 @@ def mrf_stage_reference(x: torch.Tensor, branches: Sequence[Branch], slope: floa
 
 
 def mrf_stage_tile(channels: int, branch_shapes: Sequence[Tuple[int, Sequence[int]]], itemsize: int) -> Tuple[int, int, int]:
-    """(t_tile, window, shared bytes) of one block of K3 (K2 is its one-branch
-    case), as csrc/fused_mrf.cu lays it out: a window of WINDOW_ELEMS / C
-    columns holding the tile and the largest branch halo on each side, an f32
-    residual buffer, the conv operand with zero margins of the largest conv
-    pad, and the weights of one conv of the widest branch. ``branch_shapes``:
-    (K, dilations) per branch. Raises for shapes the kernels do not take."""
+    """(t_tile, window, shared bytes) of one block of K3 (and of K2's f32
+    variant, its one-branch case), as csrc/fused_mrf.cu lays it out: a window
+    of WINDOW_ELEMS / C columns holding the tile and the largest branch halo
+    on each side, an f32 residual buffer, the conv operand with zero margins
+    of the largest conv pad, and the weights of one conv of the widest
+    branch. ``branch_shapes``: (K, dilations) per branch. Raises for shapes
+    the kernels do not take."""
     if channels not in KERNEL_CHANNELS:
         raise ValueError(f"fused MRF kernels are built for C in {KERNEL_CHANNELS}, got C={channels}")
     if not 1 <= len(branch_shapes) <= MAX_STAGE_BRANCHES:
@@ -143,10 +155,56 @@ def mrf_stage_tile(channels: int, branch_shapes: Sequence[Tuple[int, Sequence[in
     return t_tile, window, shared
 
 
+def _branch_geometry(channels: int, kernel_size: int, dilations: Sequence[int]) -> Tuple[int, int]:
+    """(halo, margin) of one branch; raises for shapes the kernels do not take."""
+    if channels not in KERNEL_CHANNELS:
+        raise ValueError(f"fused MRF kernels are built for C in {KERNEL_CHANNELS}, got C={channels}")
+    if kernel_size % 2 == 0:
+        raise ValueError(f"fused MRF kernels require an odd kernel size, got K={kernel_size}")
+    if not 1 <= len(dilations) <= 3:
+        raise ValueError(f"fused MRF kernels take 1 to 3 conv pairs, got {len(dilations)}")
+    return branch_halo(kernel_size, dilations), max((kernel_size - 1) * d // 2 for d in dilations)
+
+
+def branch_window(channels: int) -> int:
+    """K2's widest bf16 window: 128 / C M tiles in each of its warpgroups."""
+    return M_TILE * (128 // channels) * BRANCH_WARPGROUPS
+
+
 def mrf_tile(channels: int, kernel_size: int, dilations: Sequence[int], itemsize: int) -> Tuple[int, int, int]:
-    """(t_tile, window, shared bytes) of one block of K2; raises for shapes
-    the kernel does not take."""
-    return mrf_stage_tile(channels, [(kernel_size, dilations)], itemsize)
+    """(t_tile, window, shared bytes) of K2's widest block, as csrc/mrf_branch.cu
+    lays it out. bf16: a window of ``branch_window(C)`` columns holding the
+    tile and the branch halo on each side, the weight ring, the biases, the
+    f32 residual [column][C + 4] and the bf16 operand [C / 8][column][8] with
+    zero margins of the largest conv pad. f32: K3's one-branch block. Raises
+    for shapes the kernel does not take."""
+    if itemsize != 2:
+        return mrf_stage_tile(channels, [(kernel_size, dilations)], itemsize)
+    halo, margin = _branch_geometry(channels, kernel_size, dilations)
+    window = branch_window(channels)
+    t_tile = window - 2 * halo
+    if t_tile < 32:
+        raise ValueError(f"fused MRF (C={channels}, K={kernel_size}, {tuple(dilations)}) has a halo too wide for its {window}-column window")
+    shared = (
+        1024  # alignment of the swizzled ring
+        + BRANCH_STAGES * channels * 128
+        + 2 * BRANCH_STAGES * 8
+        + 3 * 2 * channels * 4  # the biases in f32
+        + window * (channels + 4) * 4
+        + (window + 2 * margin) * channels * 2
+    )
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"fused MRF needs {shared} bytes of shared memory, more than a block may use")
+    return t_tile, window, shared
+
+
+def mrf_branch_fits(channels: int, kernel_size: int, dilations: Sequence[int], itemsize: int) -> bool:
+    """Whether K2 takes this branch (counterpart of ``fused_branch_fits``)."""
+    try:
+        mrf_tile(channels, kernel_size, dilations, itemsize)
+    except ValueError:
+        return False
+    return True
 
 
 def mrf_stage_fits(channels: int, branch_shapes: Sequence[Tuple[int, Sequence[int]]], itemsize: int) -> bool:
@@ -202,6 +260,27 @@ def _tap_major(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 3, 1, 2).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _swizzle_index(pairs: int, c_out: int, c_in: int, k: int, device: torch.device) -> torch.Tensor:
+    """Position in ``[w.flatten(), 0]`` of every element of ``swizzled_taps(w)``
+    for w (pairs, C_out, C_in, K): made once per shape and device."""
+    p, t, co, chunk, e = torch.meshgrid(*(torch.arange(n) for n in (pairs, k, c_out, 8, 8)), indexing="ij")
+    ci = (chunk ^ (co % 8)) * 8 + e  # the input channel stored at this 16-byte chunk of the row
+    src = ((p * c_out + co) * c_in + ci) * k + t
+    return torch.where(ci < c_in, src, pairs * c_out * c_in * k).flatten().to(device)
+
+
+def swizzled_taps(w: torch.Tensor) -> torch.Tensor:
+    """(pairs, C_out, C_in, K) -> (pairs, K, C_out, 64): each tap as the
+    K-major B operand K2's wgmma reads, C_in padded to one 128-byte row per
+    output channel and the row's 16-byte chunk c stored at c ^ (C_out % 8),
+    the 128-byte swizzle (csrc/hopper.cuh); one 1-D copy moves a tap. One
+    gather from a cached index, so a call costs two small launches."""
+    pairs, c_out, c_in, k = w.shape
+    flat = torch.cat([w.flatten(), w.new_zeros(1)])
+    return flat[_swizzle_index(pairs, c_out, c_in, k, w.device)].view(pairs, k, c_out, 64)
+
+
 def mrf_branch_kernel(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -215,8 +294,9 @@ def mrf_branch_kernel(
     _check_kernel_operands("fused MRF", x, [(w1, b1, w2, b2, dilations)])
     B, C, T = x.shape
     n_pairs, K = len(dilations), w1.shape[-1]
-    t_tile, _, _ = mrf_tile(C, K, dilations, x.element_size())
-    w1t, w2t = _tap_major(w1), _tap_major(w2)
+    mrf_tile(C, K, dilations, x.element_size())  # raises for shapes the kernel does not take
+    prepare = swizzled_taps if x.dtype == torch.bfloat16 else _tap_major
+    w1t, w2t = prepare(w1), prepare(w2)
     b1c, b2c = b1.contiguous(), b2.contiguous()
     d = list(dilations) + [1] * (3 - n_pairs)
     out = torch.empty_like(x)
@@ -235,10 +315,9 @@ def mrf_branch_kernel(
         d[0],
         d[1],
         d[2],
-        t_tile,
         int(x.dtype == torch.bfloat16),
         float(slope),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        torch._C._cuda_getCurrentRawStream(x.device.index),  # the current stream, without a Stream object
     )
     check_launch("mrf_branch", err)
     mrf_branch_kernel.launches += 1
@@ -246,6 +325,17 @@ def mrf_branch_kernel(
 
 
 mrf_branch_kernel.launches = 0
+
+
+def kernel_branch_plan(batch: int, channels: int, length: int, kernel_size: int, dilations: Sequence[int], itemsize: int):
+    """(t_tile, window, shared bytes, SMs) that K2's C entry plans at (B, C, T)
+    on the current card: the widest tile, unless B * T gives too few blocks
+    for the SMs and a narrower tile finishes in fewer steps."""
+    d = list(dilations) + [1] * (3 - len(dilations))
+    plan = (ctypes.c_int * 4)()
+    err = kernel_library().srt_mrf_branch_plan(batch, channels, length, kernel_size, len(dilations), *d, int(itemsize == 2), plan)
+    check_launch("mrf_branch_plan", err)
+    return tuple(plan)
 
 
 def mrf_stage_kernel(x: torch.Tensor, branches: Sequence[Branch], slope: float = LRELU_SLOPE) -> torch.Tensor:

@@ -72,15 +72,22 @@ def test_flash_kernel_matches_plain_on_card(card, dtype, Nq, Nk, D, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,K,T", [(32, 7, 1500), (16, 3, 2049), (64, 11, 50)])
-def test_mrf_kernel_matches_plain_on_card(card, dtype, C, K, T):
-    """T not a multiple of the tile, and T below one tile: zero padding at every conv."""
-    rng = np.random.default_rng(C + K)
+@pytest.mark.parametrize(
+    "C,K,T,B",
+    [(32, 7, 1500, 2), (16, 3, 2049, 2), (64, 11, 50, 2), (64, 11, 1004, 2), (64, 7, 1001, 2), (64, 11, 264, 1),
+     (64, 11, 265, 1), (64, 11, 7540, 1), (16, 11, 30, 2)],
+)
+def test_mrf_kernel_matches_plain_on_card(card, dtype, C, K, T, B):
+    """T not a multiple of the tile, T below one tile, T % 8 = 4 (every C = 64
+    production row: 8-byte pieces, never 16), T odd (element by element), one
+    tile and one tile + 1 of the widest window, and a B = 1 streaming row
+    whose plan narrows the tile: zero padding at every conv."""
+    rng = np.random.default_rng(C + K + T)
 
     def rand(*shape, scale):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to("cuda", dtype)
 
-    x = rand(2, C, T, scale=0.5)
+    x = rand(B, C, T, scale=0.5)
     w1, w2 = rand(3, C, C, K, scale=1 / np.sqrt(C * K)), rand(3, C, C, K, scale=1 / np.sqrt(C * K))
     b1, b2 = rand(3, C, scale=0.01), rand(3, C, scale=0.01)
     before = TM.mrf_branch_kernel.launches
@@ -89,6 +96,54 @@ def test_mrf_kernel_matches_plain_on_card(card, dtype, C, K, T):
     assert TM.mrf_branch_kernel.launches == before + 1 and got.dtype == dtype
     want = TM.mrf_branch_reference(x, w1, b1, w2, b2, (1, 3, 5))
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=MRF_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,C,T,K,tile_on_132_sms",
+    [
+        (16, 64, 119940, 11, 264),  # a resynthesis batch: the widest tile
+        (16, 16, 479760, 3, 1512),
+        (1, 64, 7540, 11, 80),  # a streaming window at B = 1: narrow tiles, one wave
+        (1, 16, 300, 3, 168),  # T below one tile: the smallest window of the fewest steps
+    ],
+)
+def test_mrf_plan_of_the_c_entry_on_card(card, B, C, T, K, tile_on_132_sms):
+    """The tile K2's C entry plans: within the widest block, the window the
+    tile and its halo, the shared bytes those of the widest block; on a
+    132-SM H100 the tile that finishes in the fewest steps."""
+    t_tile, window, shared, sms = TM.kernel_branch_plan(B, C, T, K, (1, 3, 5), 2)
+    t_max, widest, widest_shared = TM.mrf_tile(C, K, (1, 3, 5), 2)
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    assert 32 <= t_tile <= t_max and window == t_tile + 2 * TM.branch_halo(K, (1, 3, 5)) and TM.M_TILE <= window <= widest
+    assert shared == widest_shared
+    if sms == 132:
+        assert t_tile == tile_on_132_sms
+
+
+@pytest.mark.cuda
+def test_tiny_composite_synthesizes_on_card(card):
+    """bench.py --tiny's decoder (CFM head dim 8, vocoder stages C = 8 and 4),
+    which no kernel takes: the dispatchers' gates send it to the plain path,
+    no kernel launches, and the waveforms have the lengths of waveform_lengths."""
+    from speech_resynth_torch.core.precision import BF16_INFERENCE
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.pipeline.serving import SynthesisServer
+
+    cfm = CFMConfig(vocab_size=2000, dim_in=8, dim_cond_emb=12, hidden_size=16, depth=2, heads=2, intermediate_size=24,
+                    conv_pos_embed_kernel_size=7, conv_pos_embed_groups=16)
+    voc = HifiGanConfig(model_in_dim=8, upsample_initial_channel=16, upsample_rates=(5, 4), upsample_kernel_sizes=(10, 8),
+                        resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))
+    decoder = ConditionalFlowMatchingWithHifiGan.from_config(cfm, voc, BF16_INFERENCE, device="cuda")
+    seqs = [np.random.default_rng(0).integers(1, 2001, n) for n in (50, 37, 64)]
+    k1, k2 = TA.flash_attention.launches, TM.mrf_branch_kernel.launches
+    wavs = SynthesisServer(decoder, batch_size=2, dt=0.25, length_multiple=8).synthesize_many(seqs)
+    torch.cuda.synchronize()
+    assert [w.shape for w in wavs] == [(voc.waveform_lengths(len(s)),) for s in seqs]
+    assert all(np.isfinite(w.astype(np.float32)).all() for w in wavs)
+    assert (TA.flash_attention.launches, TM.mrf_branch_kernel.launches) == (k1, k2)
 
 
 @pytest.mark.cuda

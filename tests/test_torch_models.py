@@ -44,7 +44,8 @@ CFM_KW = dict(
     conv_pos_embed_kernel_size=7,
     conv_pos_embed_groups=16,
 )
-# stage 0 (C=80) runs the plain conv chain, stage 1 (C=40) the fused-branch path
+# C = 80 and 40: no width K2 takes, so both stages run the plain conv chain;
+# NARROW_VOC_KW's stages (C = 32 and 16) take the fused-branch path
 VOC_KW = dict(
     model_in_dim=8,
     upsample_initial_channel=160,
@@ -53,6 +54,7 @@ VOC_KW = dict(
     resblock_kernel_sizes=(3, 7),
     resblock_dilation_sizes=((1, 3, 5), (1, 3)),
 )
+NARROW_VOC_KW = dict(VOC_KW, upsample_initial_channel=64)
 
 
 def _fill_zeros(tree, seed):
@@ -89,10 +91,19 @@ def cfm_pair():
 
 @pytest.fixture(scope="module")
 def vocoder_pair():
-    cfg = jax_hifigan.HifiGanConfig(**VOC_KW)
+    return _vocoder_pair(VOC_KW)
+
+
+@pytest.fixture(scope="module")
+def narrow_vocoder_pair():
+    return _vocoder_pair(NARROW_VOC_KW)
+
+
+def _vocoder_pair(kw):
+    cfg = jax_hifigan.HifiGanConfig(**kw)
     gen = jax_hifigan.HifiGanGenerator(cfg, policy=JAX_FLOAT32)
     variables = _fill_zeros(gen.init(jax.random.key(0), jnp.zeros((1, 6, cfg.model_in_dim))), 3)
-    port = torch_hifigan.HifiGanGenerator(torch_hifigan.HifiGanConfig(**VOC_KW), FLOAT32)
+    port = torch_hifigan.HifiGanGenerator(torch_hifigan.HifiGanConfig(**kw), FLOAT32)
     port.load_state_dict(hifigan_generator_state_dict(variables["params"]))
     return cfg, gen, variables, port.eval()
 
@@ -291,9 +302,8 @@ def test_generator_matches_jax_apply(vocoder_pair):
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **WAV_TOL)
 
 
-def test_generator_matches_jax_fused_pallas_interpret(vocoder_pair):
-    """Against the TPU path: narrow stages through mrf_branch_pallas (interpret)."""
-    cfg, gen, variables, port = vocoder_pair
+def _matches_jax_fused_pallas_interpret(pair):
+    cfg, gen, variables, port = pair
     mel = np.random.default_rng(9).standard_normal((2, 7, cfg.model_in_dim)).astype(np.float32)
     theirs = jax_hifigan.generator_apply_fused(
         variables["params"], cfg, jnp.asarray(mel), compute_dtype=jnp.float32, force_fused=True, interpret=True
@@ -302,10 +312,30 @@ def test_generator_matches_jax_fused_pallas_interpret(vocoder_pair):
     np.testing.assert_allclose(ours, np.asarray(theirs), **WAV_TOL)
 
 
+def test_generator_matches_jax_fused_pallas_interpret(narrow_vocoder_pair):
+    """Against the TPU path: the port's fused-branch route (mrf_branch per
+    branch, then the mean) on stages K2 takes (C = 32 and 16), the JAX
+    generator's narrow stages through mrf_branch_pallas (interpret)."""
+    assert all(rb.fused for rb in narrow_vocoder_pair[3].resblocks)
+    _matches_jax_fused_pallas_interpret(narrow_vocoder_pair)
+
+
+def test_generator_plain_chain_matches_jax_fused_pallas_interpret(vocoder_pair):
+    """Stages K2 does not take (C = 80 and 40) keep the port's plain conv
+    chain; it matches the JAX generator's fused path there too."""
+    assert not any(rb.fused for rb in vocoder_pair[3].resblocks)
+    _matches_jax_fused_pallas_interpret(vocoder_pair)
+
+
 def test_generator_routes_narrow_odd_stages_to_the_fused_branch(vocoder_pair):
+    """A branch goes to K2 when C <= 64, K is odd and K2 takes it
+    (mrf_branch_fits: C in 16, 32, 64); C = 40 is no kernel width and keeps
+    the plain conv chain, as the JAX gate sends what its kernel does not take."""
     port = vocoder_pair[3]
     routes = [(rb.convs1[0].in_channels, rb.convs1[0].kernel_size[0], rb.fused) for rb in port.resblocks]
-    assert routes == [(80, 3, False), (80, 7, False), (40, 3, True), (40, 7, True)]
+    assert routes == [(80, 3, False), (80, 7, False), (40, 3, False), (40, 7, False)]
+    routes = [(rb.convs1[0].in_channels, rb.fused) for rb in torch_hifigan.HifiGanGenerator(torch_hifigan.HifiGanConfig(**NARROW_VOC_KW), FLOAT32).resblocks]
+    assert routes == [(32, True), (32, True), (16, True), (16, True)]
 
 
 def test_generator_normalize_before_uses_carried_stats():

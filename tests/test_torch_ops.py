@@ -261,12 +261,17 @@ def test_branch_halo_matches_jax(K):
 
 @pytest.mark.parametrize("C", [16, 32, 64])
 def test_mrf_tile_fits_every_serving_shape(C):
-    """Every (C, K) pair of the serving path fits one block, in bf16 and f32."""
+    """Every (C, K) pair of the serving path fits one block, in bf16 (K2's
+    own window of 24 576 / C columns: 384 at C = 64) and in f32 (K3's
+    one-branch block)."""
     for K in (3, 7, 11):
-        for itemsize in (2, 4):
-            t_tile, window, shared = TM.mrf_tile(C, K, (1, 3, 5), itemsize)
-            assert t_tile >= 32 and t_tile + 2 * TM.branch_halo(K, (1, 3, 5)) == window
-            assert shared <= TM.MAX_SHARED_BYTES
+        halo = TM.branch_halo(K, (1, 3, 5))
+        t_tile, window, shared = TM.mrf_tile(C, K, (1, 3, 5), 2)
+        assert window == TM.branch_window(C) == 24576 // C and t_tile == window - 2 * halo >= 32
+        assert shared <= TM.MAX_SHARED_BYTES
+        assert TM.mrf_branch_fits(C, K, (1, 3, 5), 2) and TM.mrf_branch_fits(C, K, (1, 3, 5), 4)
+        t_tile, window, shared = TM.mrf_tile(C, K, (1, 3, 5), 4)
+        assert window == TM.WINDOW_ELEMS // C and t_tile == window - 2 * halo and shared <= TM.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("C,K", [(8, 3), (128, 3), (64, 4)])
@@ -275,39 +280,104 @@ def test_mrf_tile_refuses_shapes_the_kernel_does_not_take(C, K):
         TM.mrf_tile(C, K, (1, 3, 5), 2)
 
 
-def _mrf_emulation(x, w1, b1, w2, b2, dilations, slope=TM.LRELU_SLOPE):
-    """The CUDA kernel's tiling (csrc/fused_mrf.cu) in torch: per time tile a
-    window of t_tile + 2*halo columns, every conv over the whole window with
-    zero margins past its ends, conv inputs zeroed outside [0, T), and only
-    the central t_tile columns written."""
+POISON = 1e3  # what the emulation leaves in columns a conv skips: any leak into the outputs shows
+
+
+def _mrf_emulation(x, w1, b1, w2, b2, dilations, t_tile=None, slope=TM.LRELU_SLOPE):
+    """K2's tiling (csrc/mrf_branch.cu) in torch at a tile of ``t_tile``
+    columns (the widest, ``mrf_tile``'s, when None; the C entry plans
+    narrower ones for small grids): per time tile a window of t_tile + 2*halo
+    columns, an f32 residual and a conv operand rounded to x's dtype, zero
+    outside [0, T); each conv computes only its 64-column M tiles from the
+    first column the tile still needs (halo - the pads of the convs after
+    it), the last tile no further than the window's end, and every column it
+    skips is poisoned; conv1 writes lrelu(h + b1), conv2 adds into the
+    residual and writes the next operand; the central t_tile columns are the
+    output."""
     B, C, T = x.shape
     K = w1.shape[-1]
-    t_tile, window, _ = TM.mrf_tile(C, K, dilations, x.element_size())
     halo = TM.branch_halo(K, dilations)
+    t_max, widest, _ = TM.mrf_tile(C, K, dilations, x.element_size())
+    t_tile = t_max if t_tile is None else t_tile
+    window = t_tile + 2 * halo
+    assert TM.M_TILE <= window <= widest, "the kernel's window holds one M tile and fits its block"
+
+    def skipped(rem):
+        lo = halo - rem
+        hi = min(lo + TM.M_TILE * -(-(t_tile + 2 * rem) // TM.M_TILE), window)
+        cols = torch.arange(window)
+        return (cols < lo) | (cols >= hi)
+
+    def operand(v, inside):
+        return torch.where(inside, F.leaky_relu(v, slope), 0.0).to(x.dtype).float()
+
     out = torch.empty_like(x)
     for t0 in range(0, T, t_tile):
         g = torch.arange(t0 - halo, t0 - halo + window)
         inside = (g >= 0) & (g < T)
-        xs = torch.zeros(B, C, window)
-        xs[..., inside] = x[..., g[inside]].float()
+        res = torch.zeros(B, C, window)
+        res[..., inside] = x[..., g[inside]].float()
+        act, rem = operand(res, inside), halo
         for j, d in enumerate(dilations):
-            a = torch.where(inside, F.leaky_relu(xs, slope), 0.0).to(x.dtype).float()
-            h = F.conv1d(a, w1[j].float(), b1[j].float(), padding=(K - 1) * d // 2, dilation=d)
-            a = torch.where(inside, F.leaky_relu(h, slope), 0.0).to(x.dtype).float()
-            xs = xs + F.conv1d(a, w2[j].float(), b2[j].float(), padding=(K - 1) // 2)
+            rem -= (K - 1) * d // 2
+            h = F.conv1d(act, w1[j].float(), b1[j].float(), padding=(K - 1) * d // 2, dilation=d)
+            act = operand(h, inside).masked_fill(skipped(rem), POISON)
+            rem -= (K - 1) // 2
+            h = F.conv1d(act, w2[j].float(), b2[j].float(), padding=(K - 1) // 2)
+            res = (res + h).masked_fill(skipped(rem), POISON)
+            act = operand(res, inside).masked_fill(skipped(rem), POISON)
         n = min(t_tile, T - t0)
-        out[..., t0 : t0 + n] = xs[..., halo : halo + n].to(x.dtype)
+        out[..., t0 : t0 + n] = res[..., halo : halo + n].to(x.dtype)
     return out
 
 
-@pytest.mark.parametrize("C,K,T", [(16, 11, 2000), (16, 3, 300), (32, 7, 1500)])
-def test_mrf_kernel_tiling_emulation_matches_reference(C, K, T):
+@pytest.mark.parametrize(
+    "C,K,T,B,t_tile",
+    [
+        (16, 11, 2000, 1, None),
+        (16, 3, 300, 1, None),  # T below one tile of the widest window (1 512)
+        (16, 3, 300, 1, 168),  # a narrow tile, as the plan picks for a small grid
+        (32, 7, 1500, 1, None),
+        (64, 11, 200, 1, None),  # T below one tile of the widest window (264)
+        (64, 11, 265, 1, None),  # one tile + 1
+        (64, 11, 1500, 1, 80),  # a narrow tile: the plan's at B = 1 on 132 SMs for a streaming window
+        (64, 3, 1001, 2, None),
+    ],
+    ids=["c16_not_multiple", "c16_below_tile", "c16_narrow_tile", "c32_not_multiple", "c64_below_tile", "c64_tile_plus_one",
+         "c64_small_grid", "c64_k3_odd_t"],
+)
+def test_mrf_kernel_tiling_emulation_matches_reference(C, K, T, B, t_tile):
     """T not a multiple of the tile (and T below one tile): the tiles at t=0
-    and t=T see zero padding at every conv of the chain."""
-    x, w1, b1, w2, b2 = _to_torch(*_branch(C, K, T, seed=C + K, B=1))
-    got = _mrf_emulation(x, w1, b1, w2, b2, (1, 3, 5))
+    and t=T see zero padding at every conv of the chain, and the columns a
+    conv skips are never read for an output."""
+    x, w1, b1, w2, b2 = _to_torch(*_branch(C, K, T, seed=C + K, B=B))
+    got = _mrf_emulation(x, w1, b1, w2, b2, (1, 3, 5), t_tile)
     want = TM.mrf_branch_reference(x, w1, b1, w2, b2, (1, 3, 5))
     np.testing.assert_allclose(got.numpy(), want.numpy(), **MRF_TOL)
+
+
+def test_mrf_kernel_tiling_emulation_bf16():
+    """bf16 operands: the emulation rounds the same operands as the plain
+    version; the f32 sums differ in order, so the one final rounding may
+    differ by a bf16 ulp of the O(1) outputs."""
+    x, w1, b1, w2, b2 = _to_torch(*_branch(64, 7, 700, seed=5, B=1))
+    w1, w2 = w1 * (10 / np.sqrt(64 * 7)), w2 * (10 / np.sqrt(64 * 7))  # std 1/sqrt(C K): O(1) outputs
+    x, w1, b1, w2, b2 = (t.bfloat16() for t in (x, w1, b1, w2, b2))
+    got = _mrf_emulation(x, w1, b1, w2, b2, (1, 3, 5))
+    want = TM.mrf_branch_reference(x, w1, b1, w2, b2, (1, 3, 5))
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=2e-2, rtol=0)
+
+
+def test_swizzled_taps_layout():
+    """K2's B operand: tap-major, one 128-byte row per output channel, the
+    row's 16-byte chunk c at c ^ (row % 8), channels past C_in unused."""
+    w = torch.arange(2 * 16 * 16 * 3, dtype=torch.float32).view(2, 16, 16, 3)
+    sw = TM.swizzled_taps(w)
+    assert sw.shape == (2, 3, 16, 64)
+    for pair, tap, co in ((0, 0, 0), (1, 2, 5), (0, 1, 11)):
+        for c in range(2):  # C_in = 16: two chunks of 8
+            phys = c ^ (co % 8)
+            assert torch.equal(sw[pair, tap, co, 8 * phys : 8 * phys + 8], w[pair, co, 8 * c : 8 * c + 8, tap])
 
 
 def test_mrf_cpu_dispatch_takes_the_plain_version():
@@ -323,6 +393,134 @@ def test_mrf_kernel_wrapper_refuses_cpu_tensors():
     x, w1, b1, w2, b2 = _to_torch(*_branch(16, 3, 50))
     with pytest.raises(ValueError):
         TM.mrf_branch_kernel(x, w1, b1, w2, b2, (1, 3, 5))
+
+
+# ---------------------------------------------------------------------------
+# the dispatchers' gates: what each kernel takes, decided from shapes and
+# dtypes before any launch; the rest runs the plain version, as in the JAX
+# package. The gates are pure functions; the routing is checked here with
+# the tensors made to look like CUDA tensors and the kernels stubbed.
+# ---------------------------------------------------------------------------
+
+from speech_resynth_tpu.ops import codebook as JC  # noqa: E402
+from speech_resynth_torch.models import hifigan as torch_hifigan  # noqa: E402
+from speech_resynth_torch.ops import codebook as TC  # noqa: E402
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize(
+    "q_shape,k_len,mask,causal,dtype,want",
+    [
+        ((2, 2, 40, 8), 40, None, False, torch.float32, False),  # the --tiny CFM's head dim
+        ((2, 2, 40, 64), 40, None, False, torch.bfloat16, True),
+        ((2, 2, 40, 128), 40, "bool", False, torch.float32, True),
+        ((2, 2, 40, 128), 40, "int", False, torch.float32, True),  # the gate passes; flash_attention raises
+        ((2, 2, 48, 64), 40, None, True, torch.float32, False),  # causal q_len > k_len
+        ((2, 2, 40, 64), 48, None, True, torch.float32, True),
+        ((1, 1, 4, 64), TA.MAX_KEYS + 1, None, False, torch.float32, False),
+        ((2, 2, 40, 64), 40, None, False, torch.float16, True),  # the gate passes; flash_attention raises
+        ((2, 40, 64), 40, None, False, torch.float32, True),  # the gate passes; flash_attention raises
+    ],
+    ids=["d8", "d64_bf16", "d128_mask", "int_mask", "causal_q_longer", "causal_k_longer", "too_many_keys", "f16", "rank3"],
+)
+def test_flash_supported_gate(q_shape, k_len, mask, causal, dtype, want):
+    """The gate holds only the kernel's shape limits, as the JAX dispatcher routes."""
+    q = _meta(*q_shape, dtype=dtype)
+    k = _meta(*q_shape[:-2], k_len, q_shape[-1], dtype=dtype)
+    m = None if mask is None else _meta(q_shape[0], k_len, dtype=torch.bool if mask == "bool" else torch.int32)
+    assert TA.flash_supported(q, k, m, causal) is want
+
+
+@pytest.fixture
+def as_if_on_the_card(monkeypatch):
+    """Tensors that report is_cuda, so the dispatchers take their card branch."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+
+
+@pytest.mark.parametrize("case", ["f16", "int_mask", "rank3"])
+def test_dot_product_attention_raises_past_the_gate_on_the_card(as_if_on_the_card, case):
+    """A wrong dtype, mask or rank on a card-routed call raises; it never
+    falls back to the plain version."""
+    shape = (2, 16, 64) if case == "rank3" else (1, 2, 16, 64)
+    dtype = torch.float16 if case == "f16" else torch.float32
+    q, k, v = (torch.zeros(shape, dtype=dtype) for _ in range(3))
+    mask = torch.ones(shape[0], 16, dtype=torch.int32) if case == "int_mask" else None
+    assert TA.flash_supported(q, k, mask, False)
+    with pytest.raises(ValueError):
+        TA.dot_product_attention(q, k, v, mask, False)
+
+
+@pytest.mark.parametrize("D,launched", [(8, 0), (64, 1)])
+def test_dot_product_attention_routes_by_the_gate(as_if_on_the_card, monkeypatch, D, launched):
+    calls = []
+    monkeypatch.setattr(TA, "flash_attention", lambda q, k, v, mask, causal: calls.append(q.shape) or TA.attention_reference(q, k, v, mask, causal))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 16, 16, D))
+    got = TA.dot_product_attention(q, k, v, None, False)
+    assert len(calls) == launched
+    torch.testing.assert_close(got, TA.attention_reference(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "C,K,dil,itemsize,want",
+    [(8, 3, (1, 3), 2, False), (4, 3, (1, 3), 2, False), (40, 3, (1, 3, 5), 2, False), (16, 3, (1, 3, 5), 2, True),
+     (32, 7, (1, 3, 5), 4, True), (64, 11, (1, 3, 5), 2, True), (64, 4, (1, 3, 5), 2, False), (64, 3, (1, 2, 3, 4), 2, False),
+     (64, 11, (13, 13, 13), 2, False)],
+    ids=["c8", "c4", "c40", "c16", "c32_f32", "c64_k11", "even_k", "four_pairs", "halo_too_wide"],
+)
+def test_mrf_branch_fits_gate(C, K, dil, itemsize, want):
+    assert TM.mrf_branch_fits(C, K, dil, itemsize) is want
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    policy = torch_hifigan.Policy(param_dtype=torch.float32, compute_dtype=dtype, output_dtype=torch.float32)
+    block = torch_hifigan.ResidualBlock(C, K, dil, policy=policy)
+    assert block.fused is want
+
+
+def test_residual_block_off_the_gate_runs_the_plain_chain(as_if_on_the_card, monkeypatch):
+    """The --tiny vocoder's C = 8 branch on the card: the plain conv chain, no K2 launch."""
+    launches = []
+    monkeypatch.setattr(torch_hifigan, "mrf_branch", lambda *a: launches.append(a) or TM.mrf_branch_reference(*a))
+    block = torch_hifigan.ResidualBlock(8, 3, (1, 3), policy=torch_hifigan.DEFAULT)
+    assert not block.fused
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 8, 30)).astype(np.float32))
+    with torch.no_grad():
+        y = block(x)
+    assert not launches and y.shape == x.shape and torch.isfinite(y.float()).all()
+
+
+@pytest.mark.parametrize("D", [12, 8])
+def test_assign_pads_the_depth_to_a_multiple_of_8(as_if_on_the_card, monkeypatch, D):
+    """D = 12 reaches the kernel as 16 with zero columns (assign_pallas pads
+    the same way); the ids equal assign_reference's exactly."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((2, 37, D)).astype(np.float32))
+    centers = torch.from_numpy(rng.standard_normal((20, D)).astype(np.float32))
+    seen = []
+
+    def kernel(xf, c, operands=None):
+        seen.append((tuple(xf.shape), tuple(c.shape)))
+        return TC.assign_reference(xf, c)
+
+    monkeypatch.setattr(TC, "assign_kernel", kernel)
+    got = TC.assign(x, centers)
+    assert seen == [((74, -(-D // 8) * 8), (20, -(-D // 8) * 8))]
+    assert torch.equal(got, TC.assign_reference(x, centers))
+    assert torch.equal(got.flatten(), torch.from_numpy(np.array(JC.assign_reference(jnp.asarray(x.numpy().reshape(-1, D).copy()), jnp.asarray(centers.numpy().copy())))).int())
+
+
+def test_pad_depth_is_exact():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((50, 12)).astype(np.float32))
+    centers = torch.from_numpy(rng.standard_normal((9, 12)).astype(np.float32))
+    xp, cp, ops = TC.pad_depth(x, centers, TC.codebook_operands(centers))
+    assert xp.shape == (50, 16) and cp.shape == (9, 16) and ops[0].shape == ops[1].shape == (9, 16)
+    assert not xp[:, 12:].any() and not cp[:, 12:].any() and not ops[0][:, 12:].any() and not ops[1][:, 12:].any()
+    assert torch.equal(ops[2], TC.half_sq_norms(centers))  # the true rows' norms, not the padded rows' sums
+    assert torch.equal(TC.pad_depth(x, centers)[2][2], TC.half_sq_norms(centers))
+    assert torch.equal(TC.assign_reference(xp, cp), TC.assign_reference(x, centers))
+    assert TC.pad_depth(xp, cp)[0] is xp
 
 
 # ---------------------------------------------------------------------------

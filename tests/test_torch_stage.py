@@ -162,8 +162,11 @@ def test_stage_tile_fits_the_production_stages(C):
         assert window == TM.WINDOW_ELEMS // C and t_tile == window - 2 * 60 and t_tile >= 32
         assert shared <= TM.MAX_SHARED_BYTES
         assert TM.mrf_stage_fits(C, PRODUCTION_BRANCHES, itemsize)
-    # K2's layout is the stage's with one branch
-    assert TM.mrf_tile(C, 11, (1, 3, 5), 2)[2] == TM.mrf_stage_tile(C, PRODUCTION_BRANCHES, 2)[2]
+    # K2 plans its own bf16 block (csrc/mrf_branch.cu): a window of 24 576 / C
+    # columns, the K = 11 halo on each side; its f32 variant is K3's one-branch block
+    t2, w2, s2 = TM.mrf_tile(C, 11, (1, 3, 5), 2)
+    assert (t2, w2) == (TM.branch_window(C) - 120, TM.branch_window(C)) and s2 <= TM.MAX_SHARED_BYTES
+    assert TM.mrf_tile(C, 11, (1, 3, 5), 4) == TM.mrf_stage_tile(C, [PRODUCTION_BRANCHES[2]], 4)
 
 
 @pytest.mark.parametrize(
