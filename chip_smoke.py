@@ -401,9 +401,10 @@ def stage_operands(torch, gen, C, T, B, dtype):
 
 
 def stage_check(torch, M, gen, C, T, B) -> dict:
-    """K3 against mrf_stage_reference at one (B, C, T), bf16 and f32."""
+    """K3 against mrf_stage_reference at one (B, C, T), bf16 and f32, with
+    the tile its C entry plans there."""
     errs = {}
-    for name in DTYPES:
+    for name in ("bfloat16", "float32"):
         x, branches = stage_operands(torch, gen, C, T, B, getattr(torch, name))
         got = M.mrf_stage_kernel(x, branches)
         want = M.mrf_stage_reference(x, branches)
@@ -411,19 +412,26 @@ def stage_check(torch, M, gen, C, T, B) -> dict:
         errs[name] = max_err(torch, got, want)
         if not torch.isfinite(got.float()).all() or errs[name] > MRF_TOL[name]:
             fail(f"mrf_stage B={B} C={C} T={T} {name}: max abs err {errs[name]} > {MRF_TOL[name]}")
-    return {"B": B, "C": C, "T": T, "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"]}
+    shapes = [(K, MRF_DILATIONS) for K in STAGE_KERNELS]
+    t_tile, window, shared, _ = M.kernel_stage_plan(B, C, T, shapes, 2)
+    return {"B": B, "C": C, "T": T, "t_tile": t_tile, "window": window, "shared_bytes": shared,
+            "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"]}
 
 
 def stage_path(torch, M, gen, voc_cfg, path: str, frames: int, batch: int) -> dict:
     """K3 at the three launches of one vocoder call on ``batch`` rows of
     ``frames`` frames: checks, and bf16 times summed over the call of the
-    kernel, its plain version and the per-branch route (three K2 launches,
-    their sum and mean: no single PyTorch call computes a stage)."""
+    kernel (host loop ``ms``, device ``graph_ms``; its weights laid out once,
+    as the generator keeps them), its plain version and the per-branch route
+    (three K2 launches, their sum and mean; ``route_ms``, ``route_graph_ms``).
+    No single PyTorch call computes a stage, so ``library_ms`` is None."""
     shapes = []
-    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    keys = ("ms", "graph_ms", "plain_ms", "route_ms", "route_graph_ms", "bound_ms", "bytes_ms", "ops_ms")
+    totals = dict.fromkeys(keys, 0.0)
     for C, T in stage_shapes(voc_cfg, frames):
         check = stage_check(torch, M, gen, C, T, batch)
         x, branches = stage_operands(torch, gen, C, T, batch, torch.bfloat16)
+        laid_out = M.stage_operands(branches)
 
         def route():
             res = None
@@ -434,14 +442,17 @@ def stage_path(torch, M, gen, voc_cfg, path: str, frames: int, batch: int) -> di
 
         times = timed(
             torch,
-            lambda: M.mrf_stage_kernel(x, branches),
+            lambda: M.mrf_stage_kernel(x, laid_out),
             lambda: M.mrf_stage_reference(x, branches),
-            route,
+            None,
             nbytes=2 * batch * C * T * 2 + sum(2 * 3 * (C * C * K + C) * 2 for K in STAGE_KERNELS),
             flops=12.0 * sum(STAGE_KERNELS) * C * C * T * batch,
             peak_flops=PEAK_BF16_FLOPS,
-            iters=(10, 3, 10) if batch == 1 else (5, 3, 5),
+            iters=(10, 3, 0) if batch == 1 else (5, 3, 0),
         )
+        times["graph_ms"] = graph_ms(torch, lambda: M.mrf_stage_kernel(x, laid_out), iters=10, reps=3)
+        times["route_ms"] = time_ms(torch, route, 10)
+        times["route_graph_ms"] = graph_ms(torch, route, iters=10, reps=3)
         shapes.append({**check, **times})
         for key in totals:
             totals[key] += times[key]
@@ -449,21 +460,34 @@ def stage_path(torch, M, gen, voc_cfg, path: str, frames: int, batch: int) -> di
         "path": path, "frames": frames, "batch": batch, "per": "vocoder call: three launches", "dtype": "bfloat16",
         "max_abs_err": max(c["max_abs_err"] for c in shapes), "f32_max_abs_err": max(c["f32_max_abs_err"] for c in shapes),
         "tol": MRF_TOL, **totals, "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations",
-        "library": "per-branch route: three K2 launches, their sum and mean", "shapes": shapes,
+        "library_ms": None, "route": "three K2 launches, their sum and mean", "shapes": shapes,
     }
     print(json.dumps({"phase": "mrf_stage", **record}))
+    print(json.dumps({
+        "phase": "mrf_stage_vs_route", "path": path, "batch": batch, "frames": frames,
+        "k3_graph_ms": totals["graph_ms"], "route_graph_ms": totals["route_graph_ms"],
+        "k3_over_route": totals["graph_ms"] / totals["route_graph_ms"], "k3_host_ms": totals["ms"],
+        "route_host_ms": totals["route_ms"], "bound_ms": totals["bound_ms"], "per_launch": [
+            {"C": c["C"], "T": c["T"], "k3": c["graph_ms"], "route": c["route_graph_ms"]} for c in shapes],
+    }))
     return record
 
 
 def stage_phase(torch, M, voc_cfg, ctx: int) -> list:
-    """K3 against mrf_stage_reference at tile edges, then at every launch of a
-    served batch and of the streaming windows (the first, left-pinned one and
-    the interior one, which the flush of a long stream reuses)."""
+    """K3 against mrf_stage_reference at tile edges (T below one tile, not a
+    multiple of it, odd, and B = 1 rows whose plan narrows the tile), then at
+    every launch of a served batch, of a plain-config resynthesis batch (K2's
+    shape) and of the streaming windows (the first, left-pinned one and the
+    interior one, which the flush of a long stream reuses)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
-    edges = [stage_check(torch, M, gen, C, T, 3) for C, T in ((64, 50), (64, 1000), (32, 1000), (16, 137), (16, 2049))]
-    print(json.dumps({"phase": "mrf_stage_checks", "case": "T below / not a multiple of the tile", "cases": edges, "tol": MRF_TOL}))
+    edge_shapes = ((3, 64, 50), (3, 64, 1000), (3, 32, 1000), (3, 16, 137), (3, 16, 2049), (2, 64, 265), (2, 32, 999),
+                   (1, 64, 7540), (1, 16, 1513))
+    edges = [stage_check(torch, M, gen, C, T, B) for B, C, T in edge_shapes]
+    print(json.dumps({"phase": "mrf_stage_checks", "case": "T below / not a multiple of the tile, T odd, narrow B = 1 plans",
+                      "cases": edges, "tol": MRF_TOL}))
     records = [
         stage_path(torch, M, gen, voc_cfg, "serving", BUCKET, SERVE_BATCH),
+        stage_path(torch, M, gen, voc_cfg, "resynth decoder (plain config)", RESYNTH_FRAMES, SERVE_BATCH),
         stage_path(torch, M, gen, voc_cfg, "streaming window", STREAM_CHUNK + 2 * ctx, 1),
         stage_path(torch, M, gen, voc_cfg, "streaming first window", STREAM_CHUNK + ctx, 1),
     ]
@@ -1262,12 +1286,20 @@ def continuation_phase(torch, np, A, C, M) -> dict:
 KERNEL_GROUPS = (
     ("flash_attention (K1)", ("flash_fwd",)),
     ("codebook_assign (K4)", ("codebook_assign", "unpack_ids")),
-    ("mrf_stage (K3)", ("mrf_stage",)),
-    ("mrf_branch (K2)", ("mrf_branch",)),
+    ("mrf_stage (K3)", ("mrf_stage",)),  # the f32 stage kernel (also K2's f32 variant)
     # cuDNN's conv kernels are implicit GEMMs ("fprop_implicit_gemm"), so they are matched first
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "implicit", "winograd", "fft")),
     ("matmul (cuBLAS)", ("gemm", "cutlass")),
 )
+
+
+def kernel_group(name: str) -> str:
+    """The group of a kernel by its lower-cased name. K2's and K3's bf16
+    kernels are the two instances of one template (csrc/mrf_block.cuh),
+    mrf_block_bf16_kernel<C, STAGE>: STAGE true (mangled "Lb1E") is K3."""
+    if "mrf_block" in name:
+        return "mrf_stage (K3)" if "true>" in name or "lb1e" in name else "mrf_branch (K2)"
+    return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other (elementwise, copies)")
 
 
 def profile_phase(torch, path: str, run, batches: int) -> None:
@@ -1286,8 +1318,7 @@ def profile_phase(torch, path: str, run, batches: int) -> None:
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
-        name = e.key.lower()
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other (elementwise, copies)")
+        group = kernel_group(e.key.lower())
         groups[group] = groups.get(group, 0.0) + us / 1e3
         kernels.append((us / 1e3, e.count, e.key[:90]))
     busy = sum(groups.values())
@@ -1449,6 +1480,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in records),
             "tol": records[0]["tol"],
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            **({"graph_ms": total("graph_ms")} if all("graph_ms" in r for r, _ in batch) else {}),
+            **({"library_graph_ms": total("library_graph_ms")} if all(r.get("library_graph_ms") is not None for r, _ in batch) else {}),
+            **({"route_graph_ms": total("route_graph_ms")} if all("route_graph_ms" in r for r, _ in batch) else {}),
             "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
             "library_ms": None if any(r["library_ms"] is None for r, _ in batch) else total("library_ms"),
             "timed": [{k: v for k, v in r.items() if k not in ("shapes", "tol")} for r in records],
@@ -1465,8 +1499,8 @@ def main() -> int:
         entry("mrf_branch", "speech_resynth_torch/ops/csrc/mrf_branch.cu", "speech_resynth_tpu/ops/fused_mrf.py:378",
               k2, resynth_batch + " (nine launches)", [(record(k2, plain_decoder), 1)]),
         entry("mrf_stage", "speech_resynth_torch/ops/csrc/fused_mrf.cu", "speech_resynth_tpu/ops/fused_mrf.py:452",
-              k3, f"one vocoder call on a served batch of {SERVE_BATCH} (three launches; library_ms is the per-branch "
-              "route: three K2 launches, their sum and mean)", [(record(k3, "serving"), 1)]),
+              k3, f"one vocoder call on a served batch of {SERVE_BATCH} (three launches; no PyTorch call computes a "
+              "stage; route_graph_ms is the per-branch route: three K2 launches, their sum and mean)", [(record(k3, "serving"), 1)]),
         entry("codebook_assign", "speech_resynth_torch/ops/csrc/codebook.cu", "speech_resynth_tpu/ops/codebook.py:29",
               k4, resynth_batch, [(record(k4, resynth_encoder), 1)]),
     ]

@@ -11,10 +11,13 @@ The narrow MRF stages whose branches K2 takes (``mrf_branch_fits``: C in
 ``ops.fused_mrf.mrf_branch``, which is the hand-written kernel K2 on the card,
 and the mean of the branches in PyTorch; other stages run the plain conv
 chain. While ``ops.fused_mrf.MRF_STAGE_FUSION`` is set (``mrf_stage_fusion``),
-a stage that K3 takes (``stage_fusion_eligible``) runs whole through
-``ops.fused_mrf.mrf_stage`` instead: one launch for the branches and their
-mean. Module names follow the HF ``FastSpeech2ConformerHifiGan`` checkpoint
-keys.
+a stage that K3 takes (``stage_fusion_eligible``: its widest branch fits
+K2's block) runs whole through ``ops.fused_mrf.mrf_stage`` instead: one
+launch of K2's block that loops over the branches and keeps their f32 sum,
+rounded once after the mean. The generator lays each such stage's weights
+out for K3 once (``ops.fused_mrf.stage_operands``) and again only when a
+parameter changes. Module names follow the HF
+``FastSpeech2ConformerHifiGan`` checkpoint keys.
 """
 
 from __future__ import annotations
@@ -156,9 +159,20 @@ class HifiGanGenerator(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 self.resblocks.append(ResidualBlock(c_out, rk, tuple(rd), cfg.leaky_relu_slope, policy))
         self.stage_eligible = tuple(stage_eligible)  # per upsampling stage: K3 may run it
+        self._stage_ops = {}  # stage -> (parameter key, its weights laid out for K3)
         self.conv_post = nn.Conv1d(c_out, 1, 7, padding=3, dtype=pd)
         self.register_buffer("mean", torch.zeros(cfg.model_in_dim, dtype=torch.float32))
         self.register_buffer("scale", torch.ones(cfg.model_in_dim, dtype=torch.float32))
+
+    def _stage_operands(self, stage: int, blocks) -> fused_mrf.StageOperands:
+        """The stage's branches laid out for K3, kept until one of its
+        parameters moves, is replaced or changes in place."""
+        key = tuple((p.data_ptr(), p._version) for p in blocks.parameters())
+        hit = self._stage_ops.get(stage)
+        if hit is None or hit[0] != key:
+            hit = key, fused_mrf.stage_operands([blk.operands() for blk in blocks])
+            self._stage_ops[stage] = hit
+        return hit[1]
 
     def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -173,7 +187,7 @@ class HifiGanGenerator(nn.Module):
             x = F.conv_transpose1d(x, up.weight.to(cd), up.bias.to(cd), stride=up.stride, padding=up.padding)
             blocks = self.resblocks[i * num_kernels : (i + 1) * num_kernels]
             if fused_mrf.MRF_STAGE_FUSION and self.stage_eligible[i]:
-                x = mrf_stage(x.to(cd).contiguous(), [blk.operands() for blk in blocks], slope)
+                x = mrf_stage(x.to(cd).contiguous(), self._stage_operands(i, blocks), slope)
                 continue
             res = None
             for blk in blocks:

@@ -35,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes. Each returns the cudaError_t of its launch.
 SIGNATURES = {
@@ -44,9 +45,13 @@ SIGNATURES = {
     "srt_mrf_branch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # B, C, T, K, n_pairs, d0, d1, d2, is_bf16, plan (host int[4]: t_tile, window, shared bytes, SMs)
     "srt_mrf_branch_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w1, b1, w2, b2 (each branch's, concatenated), out, B, C, T, n_branches,
-    # shapes (host int[5 * n_branches]: K, n_pairs, d0, d1, d2), t_tile, is_bf16, slope, stream
-    "srt_mrf_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _P],
+    # x, w1, b1, w2, b2 (each branch's, concatenated), out, scratch, its floats, B, C, T, n_branches,
+    # shapes (host int[5 * n_branches]: K, n_pairs, d0, d1, d2), is_bf16, slope, stream (the tile is planned in C)
+    "srt_mrf_stage": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _I, _F, _P],
+    # B, C, T, n_branches, shapes, is_bf16, plan (host int[4]: t_tile, window, shared bytes, SMs)
+    "srt_mrf_stage_plan": [_I, _I, _I, _I, _P, _I, _P],
+    # out (host int64): the f32 floats of K3's scratch on the current card
+    "srt_mrf_stage_scratch_floats": [_P],
     # x (N, D), c_hi (K, D), c_lo (K, D), half_sq, packed (scratch), ids, N, D, K, x_is_bf16, stream
     "srt_codebook_assign": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

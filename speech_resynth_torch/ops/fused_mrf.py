@@ -8,7 +8,8 @@ multi-receptive-field residual block: for each dilation d,
 with SAME padding (zeros outside the sequence at every conv). One stage is
 the mean of its branches over the same input; K3 computes it in one launch,
 and the generator takes that route while ``MRF_STAGE_FUSION`` is set (see
-``mrf_stage_fusion``). The port holds activations as (B, C, T) and weights in
+``mrf_stage_fusion``). Both kernels are instances of one bf16 block
+(csrc/mrf_block.cuh). The port holds activations as (B, C, T) and weights in
 torch layout (n_pairs, C_out, C_in, K). The TPU kernels' phase fold and
 block-Toeplitz weights are MXU layouts and are not carried over.
 """
@@ -17,8 +18,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,19 +29,22 @@ from .build import check_launch, kernel_library
 
 LRELU_SLOPE = 0.1
 
-# K3's geometry (csrc/fused_mrf.cu; also K2's f32 variant): a block's window
-# holds WINDOW_ELEMS / C columns of all C channels; the channel counts both
-# kernels are instantiated for.
+# The f32 geometry of K3 (csrc/fused_mrf.cu; also K2's f32 variant): a
+# block's window holds WINDOW_ELEMS / C columns of all C channels; the channel
+# counts the kernels are instantiated for.
 WINDOW_ELEMS = 16384
 KERNEL_CHANNELS = (16, 32, 64)
 MAX_SHARED_BYTES = 232_448  # what one Hopper block may use
-MAX_STAGE_BRANCHES = 4  # csrc/fused_mrf.cu: MAX_BRANCHES
+MAX_STAGE_BRANCHES = 4  # csrc/mrf_block.cuh: MAX_BRANCHES
 
-# K2's widest bf16 block (csrc/mrf_branch.cu), which decides whether K2
-# takes a branch: BRANCH_WARPGROUPS consumer warpgroups, each holding 128 / C
-# M tiles of M_TILE window columns, so a window of 24 576 / C columns; a ring
-# of BRANCH_STAGES taps of weights, each C rows of 128 bytes. The tile a
-# launch uses is planned in the C entry (``kernel_branch_plan`` reads it).
+# The bf16 block of K2 and K3 (csrc/mrf_block.cuh), whose widest case decides
+# whether a kernel takes a branch or a stage: BRANCH_WARPGROUPS consumer
+# warpgroups, each holding 128 / C M tiles of M_TILE window columns, so a
+# window of 24 576 / C columns; a ring of BRANCH_STAGES taps of weights, each
+# C rows of 128 bytes. K3 keeps its f32 branch sum in device memory, in its
+# block's slot of a scratch buffer made once per card (``_stage_scratch``).
+# The tile a launch uses is planned in the C entries (``kernel_branch_plan``
+# and ``kernel_stage_plan`` read it).
 BRANCH_WARPGROUPS = 3
 BRANCH_STAGES = 4
 M_TILE = 64
@@ -118,14 +123,34 @@ def mrf_stage_reference(x: torch.Tensor, branches: Sequence[Branch], slope: floa
     return (total * (1.0 / len(branches))).to(x.dtype)
 
 
+def _block_shared(channels: int, window: int, margin: int, pairs: int) -> int:
+    """Shared bytes of the bf16 block (csrc/mrf_block.cuh: layout): alignment,
+    the weight ring and its barriers, every conv's bias in f32, the f32
+    residual [column][C + 4] and the bf16 operand [C / 8][column][8] with
+    zero margins."""
+    def r16(v):
+        return -(-v // 16) * 16
+
+    return (
+        1024
+        + BRANCH_STAGES * channels * 128
+        + 2 * BRANCH_STAGES * 8
+        + r16(2 * pairs * channels * 4)
+        + window * (channels + 4) * 4
+        + r16((window + 2 * margin) * channels * 2)
+    )
+
+
 def mrf_stage_tile(channels: int, branch_shapes: Sequence[Tuple[int, Sequence[int]]], itemsize: int) -> Tuple[int, int, int]:
-    """(t_tile, window, shared bytes) of one block of K3 (and of K2's f32
-    variant, its one-branch case), as csrc/fused_mrf.cu lays it out: a window
-    of WINDOW_ELEMS / C columns holding the tile and the largest branch halo
-    on each side, an f32 residual buffer, the conv operand with zero margins
-    of the largest conv pad, and the weights of one conv of the widest
-    branch. ``branch_shapes``: (K, dilations) per branch. Raises for shapes
-    the kernels do not take."""
+    """(t_tile, window, shared bytes) of K3's widest block, as its kernels lay
+    it out; the window holds the tile and the largest branch halo on each
+    side. bf16 (csrc/mrf_block.cuh): K2's block and window, ``branch_window(C)``
+    columns, with every branch's biases (the f32 branch sum lives in device
+    memory). f32 (csrc/fused_mrf.cu, also K2's f32 variant): a window of
+    WINDOW_ELEMS / C columns, an f32 residual, the conv operand with zero
+    margins of the largest conv pad, and one tap's weights.
+    ``branch_shapes``: (K, dilations) per branch. Raises for shapes the
+    kernels do not take."""
     if channels not in KERNEL_CHANNELS:
         raise ValueError(f"fused MRF kernels are built for C in {KERNEL_CHANNELS}, got C={channels}")
     if not 1 <= len(branch_shapes) <= MAX_STAGE_BRANCHES:
@@ -135,7 +160,7 @@ def mrf_stage_tile(channels: int, branch_shapes: Sequence[Tuple[int, Sequence[in
             raise ValueError(f"fused MRF kernels require an odd kernel size, got K={K}")
         if not 1 <= len(dilations) <= 3:
             raise ValueError(f"fused MRF kernels take 1 to 3 conv pairs, got {len(dilations)}")
-    window = WINDOW_ELEMS // channels
+    window = branch_window(channels) if itemsize == 2 else WINDOW_ELEMS // channels
     halo = max(branch_halo(K, dilations) for K, dilations in branch_shapes)
     t_tile = window - 2 * halo
     if t_tile < 32:
@@ -144,12 +169,10 @@ def mrf_stage_tile(channels: int, branch_shapes: Sequence[Tuple[int, Sequence[in
             f"for its {window}-column window"
         )
     margin = max((K - 1) * d // 2 for K, dilations in branch_shapes for d in dilations)
-    k_max = max(K for K, _ in branch_shapes)
-    rows = window + 2 * margin  # the conv operand's columns, with zero margins past both ends
-    if itemsize == 2:  # tensor cores: time-major f32 residual, bf16 operand and weights, padded rows
-        shared = 4 * window * (channels + 4) + 2 * (rows + k_max * channels) * (channels + 8)
+    if itemsize == 2:
+        shared = _block_shared(channels, window, margin, sum(len(d) for _, d in branch_shapes))
     else:
-        shared = 4 * channels * (window + channels + rows)
+        shared = 4 * channels * (window + channels + window + 2 * margin)
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"fused MRF needs {shared} bytes of shared memory, more than a block may use")
     return t_tile, window, shared
@@ -172,12 +195,11 @@ def branch_window(channels: int) -> int:
 
 
 def mrf_tile(channels: int, kernel_size: int, dilations: Sequence[int], itemsize: int) -> Tuple[int, int, int]:
-    """(t_tile, window, shared bytes) of K2's widest block, as csrc/mrf_branch.cu
-    lays it out. bf16: a window of ``branch_window(C)`` columns holding the
-    tile and the branch halo on each side, the weight ring, the biases, the
-    f32 residual [column][C + 4] and the bf16 operand [C / 8][column][8] with
-    zero margins of the largest conv pad. f32: K3's one-branch block. Raises
-    for shapes the kernel does not take."""
+    """(t_tile, window, shared bytes) of K2's widest block. bf16
+    (csrc/mrf_block.cuh): a window of ``branch_window(C)`` columns holding the
+    tile and the branch halo on each side, laid out as ``_block_shared``
+    counts it, with no branch sum. f32: K3's one-branch block. Raises for
+    shapes the kernel does not take."""
     if itemsize != 2:
         return mrf_stage_tile(channels, [(kernel_size, dilations)], itemsize)
     halo, margin = _branch_geometry(channels, kernel_size, dilations)
@@ -185,14 +207,7 @@ def mrf_tile(channels: int, kernel_size: int, dilations: Sequence[int], itemsize
     t_tile = window - 2 * halo
     if t_tile < 32:
         raise ValueError(f"fused MRF (C={channels}, K={kernel_size}, {tuple(dilations)}) has a halo too wide for its {window}-column window")
-    shared = (
-        1024  # alignment of the swizzled ring
-        + BRANCH_STAGES * channels * 128
-        + 2 * BRANCH_STAGES * 8
-        + 3 * 2 * channels * 4  # the biases in f32
-        + window * (channels + 4) * 4
-        + (window + 2 * margin) * channels * 2
-    )
+    shared = _block_shared(channels, window, margin, len(dilations))
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"fused MRF needs {shared} bytes of shared memory, more than a block may use")
     return t_tile, window, shared
@@ -232,11 +247,13 @@ def mrf_branch(
     return mrf_branch_kernel(x, w1, b1, w2, b2, dilations, slope)
 
 
-def mrf_stage(x: torch.Tensor, branches: Sequence[Branch], slope: float = LRELU_SLOPE) -> torch.Tensor:
+def mrf_stage(x: torch.Tensor, branches: Union[Sequence[Branch], "StageOperands"], slope: float = LRELU_SLOPE) -> torch.Tensor:
     """One whole MRF stage on (B, C, T): the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. ``branches`` may come laid out for the
+    kernel already (``stage_operands``)."""
     if not x.is_cuda:
-        return mrf_stage_reference(x, branches, slope)
+        raw = branches.branches if isinstance(branches, StageOperands) else branches
+        return mrf_stage_reference(x, raw, slope)
     return mrf_stage_kernel(x, branches, slope)
 
 
@@ -338,38 +355,95 @@ def kernel_branch_plan(batch: int, channels: int, length: int, kernel_size: int,
     return tuple(plan)
 
 
-def mrf_stage_kernel(x: torch.Tensor, branches: Sequence[Branch], slope: float = LRELU_SLOPE) -> torch.Tensor:
-    """Launch K3 on CUDA tensors: every branch of one stage and their mean;
-    raises on anything it does not take."""
-    _check_kernel_operands("MRF stage", x, branches)
-    B, C, T = x.shape
-    shapes = [(w1.shape[-1], tuple(dilations)) for w1, _, _, _, dilations in branches]
-    t_tile, _, _ = mrf_stage_tile(C, shapes, x.element_size())
-    w1s = torch.cat([_tap_major(w1).flatten() for w1, _, _, _, _ in branches])
-    w2s = torch.cat([_tap_major(w2).flatten() for _, _, w2, _, _ in branches])
-    b1s = torch.cat([b1.flatten() for _, b1, _, _, _ in branches])
-    b2s = torch.cat([b2.flatten() for _, _, _, b2, _ in branches])
+def _stage_spec(branch_shapes):
+    """The C entries' shapes, int[5] per branch: K, n_pairs, d0, d1, d2."""
     spec = []
-    for K, dilations in shapes:
+    for K, dilations in branch_shapes:
         spec += [K, len(dilations), *dilations, *[1] * (3 - len(dilations))]
-    spec_arr = (ctypes.c_int * len(spec))(*spec)
+    return (ctypes.c_int * len(spec))(*spec)
+
+
+def kernel_stage_plan(batch: int, channels: int, length: int, branch_shapes, itemsize: int):
+    """(t_tile, window, shared bytes, SMs) that K3's C entry plans at (B, C, T)
+    on the current card, as ``kernel_branch_plan`` reads K2's."""
+    plan = (ctypes.c_int * 4)()
+    err = kernel_library().srt_mrf_stage_plan(
+        batch, channels, length, len(branch_shapes), _stage_spec(branch_shapes), int(itemsize == 2), plan
+    )
+    check_launch("mrf_stage_plan", err)
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_scratch(device: torch.device) -> torch.Tensor:
+    """K3's f32 scratch on one card, made once: a branch-sum slot for each
+    block of its persistent grid, as the C entry sizes it."""
+    n = ctypes.c_longlong()
+    with torch.cuda.device(device):
+        check_launch("mrf_stage_scratch_floats", kernel_library().srt_mrf_stage_scratch_floats(ctypes.byref(n)))
+    return torch.empty(n.value, dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageOperands:
+    """One stage's branches with K3's weights laid out once: every branch's
+    taps concatenated in branch order (bf16: ``swizzled_taps``; f32: tap
+    major), and the biases likewise."""
+
+    branches: Tuple[Branch, ...]
+    shapes: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+def stage_operands(branches: Sequence[Branch]) -> StageOperands:
+    """Lay out a stage's branches for K3. A caller that runs the same weights
+    often (the generator) keeps the result, so a launch prepares nothing."""
+    shapes = tuple((w1.shape[-1], tuple(dilations)) for w1, _, _, _, dilations in branches)
+    prepare = swizzled_taps if branches[0][0].dtype == torch.bfloat16 else _tap_major
+    return StageOperands(
+        branches=tuple(branches),
+        shapes=shapes,
+        w1=torch.cat([prepare(w1).flatten() for w1, _, _, _, _ in branches]),
+        b1=torch.cat([b1.flatten() for _, b1, _, _, _ in branches]),
+        w2=torch.cat([prepare(w2).flatten() for _, _, w2, _, _ in branches]),
+        b2=torch.cat([b2.flatten() for _, _, _, b2, _ in branches]),
+    )
+
+
+def mrf_stage_kernel(
+    x: torch.Tensor, branches: Union[Sequence[Branch], StageOperands], slope: float = LRELU_SLOPE
+) -> torch.Tensor:
+    """Launch K3 on CUDA tensors: every branch of one stage and their mean;
+    raises on anything it does not take. ``branches`` raw (laid out here) or
+    from ``stage_operands``. bf16 keeps the f32 branch sum in the card's
+    scratch (``_stage_scratch``)."""
+    ops = branches if isinstance(branches, StageOperands) else stage_operands(branches)
+    _check_kernel_operands("MRF stage", x, ops.branches)
+    B, C, T = x.shape
+    mrf_stage_tile(C, ops.shapes, x.element_size())  # raises for shapes the kernel does not take
+    bf16 = x.dtype == torch.bfloat16
+    scratch = _stage_scratch(x.device) if bf16 and len(ops.shapes) > 1 else None
     out = torch.empty_like(x)
     err = kernel_library().srt_mrf_stage(
         x.data_ptr(),
-        w1s.data_ptr(),
-        b1s.data_ptr(),
-        w2s.data_ptr(),
-        b2s.data_ptr(),
+        ops.w1.data_ptr(),
+        ops.b1.data_ptr(),
+        ops.w2.data_ptr(),
+        ops.b2.data_ptr(),
         out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel(),
         B,
         C,
         T,
-        len(branches),
-        spec_arr,
-        t_tile,
-        int(x.dtype == torch.bfloat16),
+        len(ops.shapes),
+        _stage_spec(ops.shapes),
+        int(bf16),
         float(slope),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        torch._C._cuda_getCurrentRawStream(x.device.index),  # the current stream, without a Stream object
     )
     check_launch("mrf_stage", err)
     mrf_stage_kernel.launches += 1

@@ -207,13 +207,22 @@ def _stage_branches(rng, C, dtype):
     return branches
 
 
+STAGE_SHAPES = ((3, 7, 11), ((1, 3, 5),) * 3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,T", [(64, 50), (64, 1000), (32, 1000), (16, 137), (16, 2049)])
-def test_stage_kernel_matches_plain_on_card(card, dtype, C, T):
-    """K3: T below one tile and not a multiple of it, at each stage width."""
+@pytest.mark.parametrize(
+    "B,C,T",
+    [(2, 64, 50), (2, 64, 1000), (2, 32, 1000), (2, 16, 137), (2, 16, 2049), (1, 64, 7540), (1, 16, 1513),
+     (16, 64, 40980), (16, 32, 81960), (16, 16, 163920)],
+)
+def test_stage_kernel_matches_plain_on_card(card, dtype, B, C, T):
+    """K3: T below one tile and not a multiple of it, at each stage width; a
+    B = 1 streaming window (its plan narrows the tile), a B = 1 row with T odd
+    (element by element), and the three launches of a served batch."""
     rng = np.random.default_rng(C + T)
-    x = torch.from_numpy(rng.standard_normal((2, C, T)).astype(np.float32) * 0.5).to("cuda", dtype)
+    x = torch.from_numpy(rng.standard_normal((B, C, T)).astype(np.float32) * 0.5).to("cuda", dtype)
     branches = _stage_branches(rng, C, dtype)
     before = TM.mrf_stage_kernel.launches
     got = TM.mrf_stage(x, branches)
@@ -221,6 +230,37 @@ def test_stage_kernel_matches_plain_on_card(card, dtype, C, T):
     assert TM.mrf_stage_kernel.launches == before + 1 and got.dtype == dtype
     want = TM.mrf_stage_reference(x, branches)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=MRF_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,T", [(1, 32, 15080), (16, 64, 40980)])
+def test_stage_kernel_on_laid_out_weights_and_one_scratch_on_card(card, B, C, T):
+    """K3 on weights laid out once (``stage_operands``, as the generator keeps
+    them) equals K3 on the raw branches, bit for bit; every bf16 launch uses
+    the card's one scratch, a sum slot for each SM."""
+    rng = np.random.default_rng(C + T + 1)
+    x = torch.from_numpy(rng.standard_normal((B, C, T)).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    branches = _stage_branches(rng, C, torch.bfloat16)
+    laid_out = TM.stage_operands(branches)
+    got = TM.mrf_stage_kernel(x, laid_out)
+    assert torch.equal(got, TM.mrf_stage_kernel(x, branches))
+    torch.testing.assert_close(got.float(), TM.mrf_stage_reference(x, branches).float(), rtol=0, atol=MRF_TOL[torch.bfloat16])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scratch = TM._stage_scratch(x.device)
+    assert scratch.numel() == sms * 128 * TM.M_TILE * TM.BRANCH_WARPGROUPS and scratch is TM._stage_scratch(x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,T", [(16, 64, 40980), (16, 16, 479760), (1, 64, 7540), (1, 16, 300)])
+def test_stage_plan_of_the_c_entry_on_card(card, B, C, T):
+    """The tile K3's C entry plans (bf16): within its widest block, the window
+    the tile and the largest halo, the shared bytes those of the widest block."""
+    shapes = list(zip(*STAGE_SHAPES))
+    t_tile, window, shared, sms = TM.kernel_stage_plan(B, C, T, shapes, 2)
+    t_max, widest, widest_shared = TM.mrf_stage_tile(C, shapes, 2)
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    assert 32 <= t_tile <= t_max and window == t_tile + 2 * 60 and TM.M_TILE <= window <= widest
+    assert shared == widest_shared
 
 
 def _vocoder(policy):

@@ -86,86 +86,150 @@ def test_stage_reference_is_the_mean_of_the_branch_chains():
     np.testing.assert_allclose(TM.mrf_stage_reference(x, branches).numpy(), per_branch.numpy(), rtol=1e-6, atol=1e-6)
 
 
-POISON = 1e3  # what the emulation leaves in tiles a conv skips: any leak into the outputs shows
+POISON = 1e3  # what the emulation leaves in columns a conv skips or a branch never loads: any leak into the outputs shows
 
 
-def _stage_emulation(x, branches, slope=TM.LRELU_SLOPE):
-    """K3's tiling (csrc/fused_mrf.cu) in torch: per time tile one window of
-    t_tile + 2*halo_max columns, read once; every branch starts from that
-    pristine window; each conv computes only the 8-column tiles its outputs
-    still need (halo_max -+ the pads of the branch's remaining convs: the
-    JAX kernel's per-branch offset and shrinking widths) and the rest is
-    poisoned; every conv input is zeroed outside [0, T); the branches'
-    central t_tile columns are summed in f32, then 1/n and one rounding."""
+def _stage_emulation(x, branches, t_tile=None, slope=TM.LRELU_SLOPE):
+    """K3's bf16 block (csrc/mrf_block.cuh) in torch at a tile of ``t_tile``
+    columns (the widest, ``mrf_stage_tile``'s, when None; the C entry plans
+    narrower ones for small grids): per time tile a window of t_tile +
+    2*halo_max columns, an f32 residual and a conv operand rounded to x's
+    dtype, zero outside [0, T). Each branch re-reads only its own columns
+    [halo_max - halo_b, halo_max + t_tile + halo_b) of the pristine input;
+    the rest of the window keeps what the branch before left there (poison
+    before the first). Each conv computes only its 64-column M tiles from the
+    first column the tile still needs (halo_max - the pads of the branch's
+    convs after it), the last tile no further than the window's end, and
+    every column it skips is poisoned. The tile's columns of each branch
+    output go into the sum (set by the first branch, added to by the next),
+    and the last branch's output is added to the sum, multiplied by 1/n and
+    rounded once. The arithmetic is f64 on operands rounded to x's dtype, as
+    in ``_plain_stage_f64``."""
     B, C, T = x.shape
-    shapes = [(w1.shape[-1], dil) for w1, _, _, _, dil in branches]
-    t_tile, window, _ = TM.mrf_stage_tile(C, shapes, x.element_size())
-    halo_max = max(TM.branch_halo(K, dil) for K, dil in shapes)
+    shapes = [(w1.shape[-1], tuple(dil)) for w1, _, _, _, dil in branches]
+    t_max, widest, _ = TM.mrf_stage_tile(C, shapes, 2)
+    t_tile = t_max if t_tile is None else t_tile
+    halo = max(TM.branch_halo(K, dil) for K, dil in shapes)
+    window = t_tile + 2 * halo
+    assert TM.M_TILE <= window <= widest, "the kernel's window holds one M tile and fits its block"
 
-    def live(h, rem):
-        lo = max(0, (halo_max - rem) // 8) * 8
-        hi = min(window // 8, (halo_max + t_tile + rem + 7) // 8) * 8
-        h = h.clone()
-        h[..., :lo] = POISON
-        h[..., hi:] = POISON
-        return h
+    def skipped(rem):
+        lo = halo - rem
+        hi = min(lo + TM.M_TILE * -(-(t_tile + 2 * rem) // TM.M_TILE), window)
+        cols = torch.arange(window)
+        return (cols < lo) | (cols >= hi)
+
+    def operand(v, inside):
+        return torch.where(inside, F.leaky_relu(v, slope), 0.0).to(x.dtype).double()
 
     out = torch.empty_like(x)
     for t0 in range(0, T, t_tile):
-        g = torch.arange(t0 - halo_max, t0 - halo_max + window)
+        g = torch.arange(t0 - halo, t0 - halo + window)
         inside = (g >= 0) & (g < T)
-        pristine = torch.zeros(B, C, window)
-        pristine[..., inside] = x[..., g[inside]].float()
-        total = torch.zeros(B, C, t_tile)
+        pristine = torch.zeros(B, C, window, dtype=torch.float64)
+        pristine[..., inside] = x[..., g[inside]].double()
+        res, act, total = torch.full_like(pristine, POISON), torch.full_like(pristine, POISON), None
         for (w1, b1, w2, b2, dil), (K, _) in zip(branches, shapes):
-            xs, rem = pristine, TM.branch_halo(K, dil)
+            rem = TM.branch_halo(K, dil)
+            own = slice(halo - rem, halo + t_tile + rem)
+            res, act = res.clone(), act.clone()
+            res[..., own] = pristine[..., own]
+            act[..., own] = operand(pristine, inside)[..., own]
             for j, d in enumerate(dil):
-                a = torch.where(inside, F.leaky_relu(xs, slope), 0.0).to(x.dtype).float()
                 rem -= (K - 1) * d // 2
-                h = live(F.conv1d(a, w1[j].float(), b1[j].float(), padding=(K - 1) * d // 2, dilation=d), rem)
-                a = torch.where(inside, F.leaky_relu(h, slope), 0.0).to(x.dtype).float()
+                h = F.conv1d(act, w1[j].double(), b1[j].double(), padding=(K - 1) * d // 2, dilation=d)
+                act = operand(h, inside).masked_fill(skipped(rem), POISON)
                 rem -= (K - 1) // 2
-                xs = xs + live(F.conv1d(a, w2[j].float(), b2[j].float(), padding=(K - 1) // 2), rem)
-            total = total + xs[..., halo_max : halo_max + t_tile]
+                h = F.conv1d(act, w2[j].double(), b2[j].double(), padding=(K - 1) // 2)
+                res = (res + h).masked_fill(skipped(rem), POISON)
+                act = operand(res, inside).masked_fill(skipped(rem), POISON)
+            branch_out = res[..., halo : halo + t_tile]
+            total = branch_out if total is None else total + branch_out
         n = min(t_tile, T - t0)
         out[..., t0 : t0 + n] = (total * (1.0 / len(branches)))[..., :n].to(x.dtype)
     return out
 
 
+def _plain_stage_f64(x, branches, slope=TM.LRELU_SLOPE):
+    """mrf_stage_reference's arithmetic in f64: each conv's operands rounded
+    to x's dtype, the chains and their sum in f64, one rounding at the end.
+    The tiling emulation is held against this, not the f32 plain version: at
+    C = 64 these chains reach O(40), and the f32 plain version sits up to
+    3.6e-5 from f64 there (C = 64, T = 300), about twice the f32 tolerance;
+    at C = 16 and 32 it sits within a quarter of it
+    (``test_plain_stage_f64_is_the_plain_version``)."""
+    total = None
+    for w1, b1, w2, b2, dil in branches:
+        K = w1.shape[-1]
+        res = x.double()
+        for j, d in enumerate(dil):
+            a = F.leaky_relu(res, slope).to(x.dtype).double()
+            h = F.conv1d(a, w1[j].double(), b1[j].double(), padding=(K - 1) * d // 2, dilation=d)
+            a = F.leaky_relu(h, slope).to(x.dtype).double()
+            res = res + F.conv1d(a, w2[j].double(), b2[j].double(), padding=(K - 1) // 2)
+        total = res if total is None else total + res
+    return (total * (1.0 / len(branches))).to(x.dtype)
+
+
 @pytest.mark.parametrize(
-    "C,T",
-    [(16, 137), (16, 2000), (32, 1000), (64, 50), (64, 300)],
-    ids=["c16_below_tile", "c16_not_multiple", "c32_not_multiple", "c64_below_tile", "c64_not_multiple"],
+    "C,T,B,t_tile",
+    [
+        (16, 137, 1, None),
+        (16, 2000, 1, None),
+        (32, 1000, 1, None),
+        (64, 50, 1, None),
+        (64, 300, 1, None),
+        (64, 265, 2, None),  # one tile + 1 of the widest window (264)
+        (64, 700, 1, 80),  # a narrow tile: the plan's at B = 1 on 132 SMs for a streaming window
+        (16, 900, 1, 272),  # a narrow tile at C = 16, below the K = 3 branch's own width
+    ],
+    ids=["c16_below_tile", "c16_not_multiple", "c32_not_multiple", "c64_below_tile", "c64_not_multiple",
+         "c64_tile_plus_one", "c64_narrow_tile", "c16_narrow_tile"],
 )
-def test_stage_kernel_tiling_emulation_matches_reference(C, T):
-    """T below one tile and not a multiple of it: the tiles at t=0 and t=T
-    see zero padding at every conv of every branch."""
-    x, branches = _to_torch(*_stage(C, T, PRODUCTION_BRANCHES, seed=C + T, B=1))
-    got = _stage_emulation(x, branches)
-    np.testing.assert_allclose(got.numpy(), TM.mrf_stage_reference(x, branches).numpy(), **F32_TOL)
+def test_stage_kernel_tiling_emulation_matches_reference(C, T, B, t_tile):
+    """T below one tile and not a multiple of it, and narrow planned tiles:
+    the tiles at t=0 and t=T see zero padding at every conv of every branch,
+    and neither the columns a conv skips nor those a branch does not load
+    reach an output."""
+    x, branches = _to_torch(*_stage(C, T, PRODUCTION_BRANCHES, seed=C + T, B=B))
+    got = _stage_emulation(x, branches, t_tile)
+    np.testing.assert_allclose(got.numpy(), _plain_stage_f64(x, branches).numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("C,T", [(16, 300), (32, 200)])
+def test_plain_stage_f64_is_the_plain_version(C, T):
+    """What the emulation is held against is ``mrf_stage_reference``'s
+    arithmetic: in f32 the two agree within the f32 tolerance at widths whose
+    chains stay O(1-10)."""
+    x, branches = _to_torch(*_stage(C, T, PRODUCTION_BRANCHES, seed=C * T, B=2))
+    np.testing.assert_allclose(_plain_stage_f64(x, branches).numpy(), TM.mrf_stage_reference(x, branches).numpy(), **F32_TOL)
 
 
 def test_stage_kernel_tiling_emulation_bf16():
     """In bf16 the emulation rounds the same operands as the plain version;
-    the f32 sums differ in order, so the one final rounding may differ by a
-    bf16 ulp of the O(1) outputs."""
+    the sums differ in order, so the one final rounding may differ by a bf16
+    ulp of the O(1) outputs."""
     x, branches = _to_torch(*_stage(64, 300, PRODUCTION_BRANCHES, seed=11, B=1), torch.bfloat16)
     got = _stage_emulation(x, branches)
-    want = TM.mrf_stage_reference(x, branches)
+    want = _plain_stage_f64(x, branches)
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.parametrize("C", [16, 32, 64])
 def test_stage_tile_fits_the_production_stages(C):
+    # bf16 (csrc/mrf_block.cuh): K2's window of 24 576 / C columns, the K = 11
+    # halo (60) on each side, every branch's biases; the branch sum lives in
+    # device memory. f32: K3's whole-window block of 16 384 / C columns.
+    t_tile, window, shared = TM.mrf_stage_tile(C, PRODUCTION_BRANCHES, 2)
+    assert window == TM.branch_window(C) and t_tile == window - 2 * 60 and shared <= TM.MAX_SHARED_BYTES
+    assert (t_tile, window) == TM.mrf_tile(C, 11, (1, 3, 5), 2)[:2]
+    assert shared == TM.mrf_tile(C, 11, (1, 3, 5), 2)[2] + 2 * 2 * 3 * C * 4  # the other two branches' biases
+    t_tile, window, shared = TM.mrf_stage_tile(C, PRODUCTION_BRANCHES, 4)
+    assert window == TM.WINDOW_ELEMS // C and t_tile == window - 2 * 60 and shared <= TM.MAX_SHARED_BYTES
     for itemsize in (2, 4):
-        t_tile, window, shared = TM.mrf_stage_tile(C, PRODUCTION_BRANCHES, itemsize)
-        assert window == TM.WINDOW_ELEMS // C and t_tile == window - 2 * 60 and t_tile >= 32
-        assert shared <= TM.MAX_SHARED_BYTES
         assert TM.mrf_stage_fits(C, PRODUCTION_BRANCHES, itemsize)
-    # K2 plans its own bf16 block (csrc/mrf_branch.cu): a window of 24 576 / C
-    # columns, the K = 11 halo on each side; its f32 variant is K3's one-branch block
-    t2, w2, s2 = TM.mrf_tile(C, 11, (1, 3, 5), 2)
-    assert (t2, w2) == (TM.branch_window(C) - 120, TM.branch_window(C)) and s2 <= TM.MAX_SHARED_BYTES
+    # K2's bf16 block is K3's with one branch; its f32 variant is K3's one-branch block
+    assert TM.mrf_stage_tile(C, [PRODUCTION_BRANCHES[2]], 2) == TM.mrf_tile(C, 11, (1, 3, 5), 2)
     assert TM.mrf_tile(C, 11, (1, 3, 5), 4) == TM.mrf_stage_tile(C, [PRODUCTION_BRANCHES[2]], 4)
 
 
@@ -273,6 +337,38 @@ def test_generator_stage_fusion_on_equals_off(generator_pair):
             TM.mrf_stage_reference = original
     assert len(calls) == 1 and calls[0][1] == 16  # the one narrow stage a kernel width, C = 16
     np.testing.assert_allclose(on.numpy(), off.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_generator_lays_out_stage_weights_once_and_again_after_they_change(generator_pair):
+    """With stage fusion on the generator keeps each stage's weights laid out
+    for K3 (``stage_operands``) across calls, and lays them out again once a
+    parameter changes in place, so the output follows the new weights."""
+    _, _, port = generator_pair
+    mel = torch.from_numpy(np.random.default_rng(11).standard_normal((1, 9, 8)).astype(np.float32))
+    saved = {k: v.clone() for k, v in port.state_dict().items()}
+    made = []
+    original = TM.stage_operands
+
+    def counting(branches):
+        made.append(len(branches))
+        return original(branches)
+
+    TM.stage_operands = counting
+    try:
+        with TM.mrf_stage_fusion(True), torch.no_grad():
+            port._stage_ops.clear()
+            first, again = port(mel), port(mel)
+            assert made == [2] and torch.equal(first, again)
+            port.load_state_dict({k: v * 1.5 if k.startswith("resblocks") else v for k, v in saved.items()})
+            changed = port(mel)
+            assert made == [2, 2]
+        with torch.no_grad():
+            off = port(mel)
+    finally:
+        TM.stage_operands = original
+        port.load_state_dict(saved)
+    assert not torch.allclose(changed, first)
+    np.testing.assert_allclose(changed.numpy(), off.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("policy", [BF16_INFERENCE, FLOAT32], ids=["bf16", "f32"])
