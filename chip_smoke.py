@@ -33,10 +33,27 @@
    textless speech continuation (``generate_speechlm``: HuBERT-base + 100
    centers, a port-trained BPE, the LM, the duration-predicting decoder) with
    stage fusion on, greedy and sampled, with the time split of one run;
-9. profiles device time by kernel group, and prints one ``{"kernels": [...]}``
-   line (launches of every path above, the shape of every counted launch,
-   and the times of each kernel at every timed shape) and, last, the
-   ``{"ok": true, ...}`` line.
+9. runs ``continue_speech(speculative=True)`` (prompt-lookup decoding) on the
+   same pieces, greedy and sampled: launches, lengths, reproducibility;
+   ``lookup_decode`` against ``greedy_decode`` (equal up to a near-tie),
+   tokens per iteration and ms per token beside plain decoding, and a small
+   LM's speculative samples against ``sample_decode``'s distribution;
+10. runs the sLM21 evaluation: ``tokenize_slm21`` (HuBERT-base + 100
+   centers) over 96 word and 96 sentence pairs, then ``evaluate`` with the
+   full-width LM at batch 96 (K1 causal, no mask): every name scored, the
+   four aggregate numbers, one batch on the card against the CPU;
+11. runs ``preprocess`` (resample with VAD, tokenize with the full-width
+   mHuBERT + 2000-center encoder, extract_features) on a 24 kHz
+   LibriTTS-R-shaped tree of 48 files: lengths, unit JSONs, mel frames,
+   idempotence, the card's resample and mel against the CPU's, and the peak
+   memory of a 40-s batch of 8 resampled from 44.1 kHz;
+12. fits k-means (k = 100, 50 000 x 768, 10 Lloyd steps) on the card and on
+   the CPU from the same centers;
+13. holds and times K1 and K4 at the shapes of those paths (sLM21 tokenize and
+   scoring, preprocess tokenize), profiles device time by kernel group, and
+   prints one ``{"kernels": [...]}`` line (launches of every path above, the
+   shape of every counted launch, and the times of each kernel at every
+   timed shape) and, last, the ``{"ok": true, ...}`` line.
 
 Any failed check raises, and the script exits non-zero with no result line.
 Without CUDA, or without the repository beside it, it exits non-zero at once.
@@ -77,6 +94,12 @@ STREAM_FRAMES = 500  # 10 s of mel
 LM_BATCH, LM_TOKENS = 16, 256  # the LM scoring shape (configs/speechlm/hubert.yaml widths)
 CONT_ENCODER = ("hubert-base-ls960", "kmeans", 100)  # configs/speechlm/hubert.yaml s2u
 CONT_NEW_TOKENS = 128
+
+SLM21_PAIRS = 96  # pairs per sLM21 task
+SLM21_BATCH = 96  # configs/speechlm/hubert.yaml dataloader.batch_size_per_device
+SLM21_ENC_BATCH = 8  # tokenize_slm21's encoder batch (20-s padding)
+PRE_FILES, PRE_RATE = 48, 24000  # the LibriTTS-R-shaped tree of the preprocess phase
+PRE_TOKENIZE_BATCH = 16  # configs/resynth/mhubert-expresso-2000.yaml dataset.preprocess_batch_size
 
 
 def fail(msg: str) -> None:
@@ -146,14 +169,20 @@ def timed(torch, fn, plain, library, nbytes: float, flops: float, peak_flops: fl
     }
 
 
-def attention_shape(torch, F, A, gen, path: str, B: int, H: int, N: int, D: int, lo: int, hi: int, causal: bool = False) -> dict:
+def attention_shape(torch, F, A, gen, path: str, B: int, H: int, N: int, D: int, lo: int, hi: int, causal: bool = False,
+                    masked: bool = True) -> dict:
     """K1 against attention_reference at one shape a path launches it at:
     key lengths drawn in [lo, hi] (row 0 at hi), bidirectional or causal,
-    bf16 and f32; times in bf16 beside SDPA with the same mask."""
+    bf16 and f32; times in bf16 beside SDPA with the same mask. ``masked``
+    False: the kernel gets no mask, as the LM's scoring forward calls it
+    (every key valid)."""
     dev = "cuda"
     lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
     lengths[0] = hi
-    mask = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+    if not masked:
+        lengths[:] = N
+    full = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+    mask = full if masked else None
     errs, tols = {}, {}
     for name in DTYPES:
         dtype = getattr(torch, name)
@@ -168,13 +197,13 @@ def attention_shape(torch, F, A, gen, path: str, B: int, H: int, N: int, D: int,
         if not torch.isfinite(got.float()).all() or errs[name] > tols[name]:
             fail(f"flash_attention {path} {[B, H, N, D]} {name}: max abs err {errs[name]} > {tols[name]}")
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-    allowed = mask[:, None, None, :]  # (B, 1, 1 or N, N): the (query, key) pairs this input needs
+    allowed = full[:, None, None, :]  # (B, 1, 1 or N, N): the (query, key) pairs this input needs
     if causal:
         allowed = allowed & torch.ones(N, N, dtype=torch.bool, device=dev).tril()
     float_mask = torch.zeros(allowed.shape, device=dev, dtype=torch.bfloat16).masked_fill(~allowed, A.NEG_INF)
     pairs = float(allowed.expand(B, 1, N, N).sum())
     record = {
-        "path": path, "shape": [B, H, N, D], "dtype": "bfloat16", "key_lengths": [lo, hi], "causal": causal,
+        "path": path, "shape": [B, H, N, D], "dtype": "bfloat16", "key_lengths": [lo, hi] if masked else None, "causal": causal,
         # the (query block, key tile) pairs the bf16 kernel visits, from this mask on the host
         "live_tile_share": A.live_tile_share(mask, B, N, N, causal, A.QUERY_BLOCK),
         "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"], "tol": tols,
@@ -184,7 +213,7 @@ def attention_shape(torch, F, A, gen, path: str, B: int, H: int, N: int, D: int,
             lambda: A.attention_reference(q, k, v, mask, causal),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=float_mask),
             # q and o, the K and V rows of the valid keys (a masked key's are never read), the mask
-            nbytes=2 * B * H * N * D * 2 + 2 * H * D * 2 * int(mask.sum()) + B * N,
+            nbytes=2 * B * H * N * D * 2 + 2 * H * D * 2 * int(full.sum()) + (B * N if masked else 0),
             flops=4.0 * H * D * pairs,  # every query against the keys its row and position allow
             peak_flops=PEAK_BF16_FLOPS,
             graph=True,
@@ -506,9 +535,70 @@ def clear_of_ties(torch, C, x, centers):
     return (top2[:, 0] - top2[:, 1]) > 1e-3 * (top2[:, 0].abs() + 1)
 
 
+def score_given_up(C, x, centers, got, want):
+    """The score each frame's id gives up against the best (0 unless a
+    near-tie flipped): absolute, and relative to |best| + 1."""
+    score = x.float() @ centers.T - C.half_sq_norms(centers)
+    best = score.gather(1, want.long()[:, None])[:, 0]
+    lost = (best - score.gather(1, got.long()[:, None])[:, 0]).abs()
+    return float(lost.max()), float((lost / (best.abs() + 1)).max())
+
+
+def codebook_check(torch, C, label, x, centers) -> tuple:
+    """K4 against assign_reference on (x, centers): (ids, case record); fails
+    on a clear frame's mismatch, an equal share under 0.999, a flipped
+    near-tie that gives up more than SCORE_TOL, or an id out of range."""
+    got = C.assign_kernel(x, centers)
+    want = C.assign_reference(x, centers)
+    torch.cuda.synchronize()
+    err, rel = score_given_up(C, x, centers, got, want)
+    clear = clear_of_ties(torch, C, x, centers)
+    case = {
+        "case": label, "N": x.shape[0], "D": x.shape[1], "K": centers.shape[0], "dtype": str(x.dtype).split(".")[-1],
+        "equal_share": float((got == want).float().mean()), "clear_frame_mismatches": int((got != want)[clear].sum()),
+        "near_tie_frames": int((~clear).sum()), "max_abs_score_err": err, "max_rel_score_err": rel,
+    }
+    if (case["clear_frame_mismatches"] or case["equal_share"] < 0.999 or rel > SCORE_TOL
+            or int(got.min()) < 0 or int(got.max()) >= centers.shape[0]):
+        fail(f"codebook_assign {case}")
+    return got, case
+
+
+CODEBOOK_TOL = ("ids equal where the top-2 score gap exceeds 1e-3*(|top|+1); max_abs_err is the score given up by a "
+                f"flipped near-tie, at most {SCORE_TOL}*(|best|+1)")
+
+
+def codebook_shape(torch, C, gen, path: str, n: int, k: int, d: int = 768) -> dict:
+    """K4 held against assign_reference at one (n, d, k) a path launches it
+    at, and timed (f32) beside its plain version and addmm + argmax."""
+    x, c = torch.randn(n, d, generator=gen, device="cuda"), torch.randn(k, d, generator=gen, device="cuda")
+    _, case = codebook_check(torch, C, path, x, c)
+    ops = C.codebook_operands(c)  # made once, as KMeansQuantizer makes them
+    half = ops[2]
+    record = {
+        "path": path, "shape": [n, d, k], "dtype": "float32", "max_abs_err": case["max_abs_score_err"], "check": case,
+        "tol": CODEBOOK_TOL,
+        **timed(
+            torch,
+            lambda: C.assign_kernel(x, c, ops),
+            lambda: C.assign_reference(x, c),
+            lambda: torch.addmm(-half, x, c.T).argmax(dim=-1),  # cuBLAS SGEMM, TF32 off
+            nbytes=4 * (n * d + k * d) + 4 * n,
+            flops=3 * 2.0 * n * d * k,  # f32-accurate products on the tensor cores: three TF32 products
+            peak_flops=PEAK_TF32_FLOPS,
+            iters=(20, 20, 20),
+            graph=True,
+        ),
+        "bound_peak": "H100 SXM TF32 tensor cores, 495 TFLOP/s, three products (3xTF32): the floor for f32-accurate products",
+        "f32_cuda_core_bound_ms": 2.0 * n * d * k / PEAK_F32_FLOPS * 1e3,
+    }
+    print(json.dumps({"phase": "codebook_assign", **record}))
+    return record
+
+
 def codebook_phase(torch, C) -> list:
     """K4 against assign_reference at the encoder's and the resynthesis
-    path's shapes, plus edge cases; times at the two path shapes."""
+    path's shapes, plus edge cases; times at the path shapes."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(4)
     D, K = 768, 2000
@@ -518,29 +608,9 @@ def codebook_phase(torch, C) -> list:
 
     cases = []
 
-    def given_up(x, centers, got, want):
-        """The score each frame's id gives up against the best (0 unless a
-        near-tie flipped): absolute, and relative to |best| + 1."""
-        score = x.float() @ centers.T - C.half_sq_norms(centers)
-        best = score.gather(1, want.long()[:, None])[:, 0]
-        lost = (best - score.gather(1, got.long()[:, None])[:, 0]).abs()
-        return float(lost.max()), float((lost / (best.abs() + 1)).max())
-
     def check(label, x, centers):
-        got = C.assign_kernel(x, centers)
-        want = C.assign_reference(x, centers)
-        torch.cuda.synchronize()
-        err, rel = given_up(x, centers, got, want)
-        clear = clear_of_ties(torch, C, x, centers)
-        case = {
-            "case": label, "N": x.shape[0], "D": x.shape[1], "K": centers.shape[0], "dtype": str(x.dtype).split(".")[-1],
-            "equal_share": float((got == want).float().mean()), "clear_frame_mismatches": int((got != want)[clear].sum()),
-            "near_tie_frames": int((~clear).sum()), "max_abs_score_err": err, "max_rel_score_err": rel,
-        }
+        got, case = codebook_check(torch, C, label, x, centers)
         cases.append(case)
-        if (case["clear_frame_mismatches"] or case["equal_share"] < 0.999 or rel > SCORE_TOL
-                or int(got.min()) < 0 or int(got.max()) >= centers.shape[0]):
-            fail(f"codebook_assign {case}")
         return got
 
     paths = (
@@ -571,7 +641,7 @@ def codebook_phase(torch, C) -> list:
         tf32_ids = torch.addmm(-C.half_sq_norms(c), x, c.T).argmax(dim=-1)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    err, rel = given_up(x, c, tf32_ids, want)
+    err, rel = score_given_up(C, x, c, tf32_ids, want)
     clear = clear_of_ties(torch, C, x, c)
     tf32_control = {
         "case": "tf32_control (cuBLAS TF32 addmm + argmax, not a kernel of the port)", "N": x.shape[0], "K": K,
@@ -599,46 +669,22 @@ def codebook_phase(torch, C) -> list:
         "rule": f"ids equal where top-2 gap > 1e-3*(|top|+1); equal share >= 0.999; score given up <= {SCORE_TOL}*(|best|+1)",
         "cases": cases, "control": tf32_control,
     }))
-
-    records = []
-    for path, n, K in paths:
-        x, c = operands(n, D, K)
-        ops = C.codebook_operands(c)  # made once, as KMeansQuantizer makes them
-        half = ops[2]
-        record = {
-            "path": path, "shape": [n, D, K], "dtype": "float32",
-            "max_abs_err": max(case["max_abs_score_err"] for case in cases if "max_abs_score_err" in case),
-            "tol": f"ids equal where the top-2 score gap exceeds 1e-3*(|top|+1); max_abs_err is the score given up by a flipped near-tie, at most {SCORE_TOL}*(|best|+1)",
-            **timed(
-                torch,
-                lambda: C.assign_kernel(x, c, ops),
-                lambda: C.assign_reference(x, c),
-                lambda: torch.addmm(-half, x, c.T).argmax(dim=-1),  # cuBLAS SGEMM, TF32 off
-                nbytes=4 * (n * D + K * D) + 4 * n,
-                flops=3 * 2.0 * n * D * K,  # f32-accurate products on the tensor cores: three TF32 products
-                peak_flops=PEAK_TF32_FLOPS,
-                iters=(20, 20, 20),
-                graph=True,
-            ),
-            "bound_peak": "H100 SXM TF32 tensor cores, 495 TFLOP/s, three products (3xTF32): the floor for f32-accurate products",
-            "f32_cuda_core_bound_ms": 2.0 * n * D * K / PEAK_F32_FLOPS * 1e3,
-        }
-        print(json.dumps({"phase": "codebook_assign", **record}))
-        records.append(record)
+    records = [codebook_shape(torch, C, gen, path, n, k) for path, n, k in paths]
     torch.cuda.synchronize()
     return records
 
 
-def speechlike_waves(np, rng, n: int):
-    """``n`` seeded waveforms of 8-10 s (the first exactly 10 s): a gliding
-    voiced tone with harmonics under a syllable-rate envelope, plus noise."""
-    lengths = rng.integers(8 * SAMPLE_RATE, 10 * SAMPLE_RATE + 1, n)
-    lengths[0] = 10 * SAMPLE_RATE
+def speechlike_waves(np, rng, n: int, seconds=(8, 10), rate: int = SAMPLE_RATE):
+    """``n`` seeded waveforms of 8-10 s (or ``seconds``; the first the
+    longest) at ``rate``: a gliding voiced tone with harmonics under a
+    syllable-rate envelope, plus noise."""
+    lengths = rng.integers(int(seconds[0] * rate), int(seconds[1] * rate) + 1, n)
+    lengths[0] = int(seconds[1] * rate)
     waves = []
     for length in lengths:
-        t = np.arange(int(length)) / SAMPLE_RATE
+        t = np.arange(int(length)) / rate
         f0 = rng.uniform(90, 220) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 0.6) * t))
-        phase = 2 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+        phase = 2 * np.pi * np.cumsum(f0) / rate
         env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
         voiced = np.sin(phase) + 0.4 * np.sin(2 * phase) + 0.2 * np.sin(3 * phase)
         waves.append((0.3 * env * voiced + 0.02 * rng.standard_normal(len(t))).astype(np.float32))
@@ -1140,13 +1186,35 @@ def write_hf_dir(torch, path: Path, state_dict: dict, config: dict) -> None:
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path / "pytorch_model.bin")
 
 
-def continuation_phase(torch, np, A, C, M) -> dict:
+def train_bpe(np, BpeTokenizer, units_to_unicode, n_units: int):
+    """The port's BPE trained on 400 seeded deduplicated unit strings built
+    from 300 motifs of 2-5 units: a 400-token vocabulary over ``n_units``."""
+    rng = np.random.default_rng(16)
+    motifs = [rng.integers(0, n_units, int(rng.integers(2, 6))) for _ in range(300)]
+    lines = []
+    for _ in range(400):
+        seq = np.concatenate([motifs[j] for j in rng.integers(0, len(motifs), 40)])
+        lines.append(units_to_unicode(seq[np.r_[True, seq[1:] != seq[:-1]]]))
+    return BpeTokenizer.train(lines, 400, units_to_unicode(range(n_units)))
+
+
+def continuation_config(config_from_dict, tmp: Path, bpe_vocab: int):
+    """configs/speechlm/hubert.yaml's model and s2u sections over the pieces in ``tmp``."""
+    return config_from_dict({
+        "model": {"path": str(tmp / "lm"), "vocab_size": bpe_vocab, "pad_token_id": 0, "bos_token_id": None, "eos_token_id": 1},
+        "s2u": {"dense_model_name": CONT_ENCODER[0], "quantizer_model_name": CONT_ENCODER[1], "vocab_size": CONT_ENCODER[2],
+                "tokenizer_path": str(tmp / "tokenizer.json")},
+    })
+
+
+def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
     """Textless speech continuation (``generate_speechlm``) at full width with
     stage fusion on: a BPE tokenizer trained by the port on seeded unit
     strings, a 10-s prompt wav, the -duration-prediction decoder and the LM
-    as local directories with seeded random weights, then greedy and seeded
-    sampled runs of 128 new tokens; launches, output lengths, unit range and
-    reproducibility; and the time split of one run."""
+    as local directories under ``tmp`` with seeded random weights (left there
+    for the speculative phase), then greedy and seeded sampled runs of 128
+    new tokens; launches, output lengths, unit range and reproducibility;
+    and the time split of one run."""
     import dataclasses
 
     from speech_resynth_torch.core.config import config_from_dict
@@ -1164,123 +1232,593 @@ def continuation_phase(torch, np, A, C, M) -> dict:
     n_units = CONT_ENCODER[2]
     voc_cfg = HifiGanConfig()
     results = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(16)
-        motifs = [rng.integers(0, n_units, int(rng.integers(2, 6))) for _ in range(300)]
-        lines = []
-        for _ in range(400):
-            seq = np.concatenate([motifs[j] for j in rng.integers(0, len(motifs), 40)])
-            lines.append(units_to_unicode(seq[np.r_[True, seq[1:] != seq[:-1]]]))
-        tok = BpeTokenizer.train(lines, 400, units_to_unicode(range(n_units)))
-        tok.save(str(tmp / "tokenizer.json"))
-        audio_io.write(tmp / "prompt.wav", speechlike_waves(np, np.random.default_rng(17), 1)[0], SAMPLE_RATE)
+    t0 = time.perf_counter()
+    tok = train_bpe(np, BpeTokenizer, units_to_unicode, n_units)
+    tok.save(str(tmp / "tokenizer.json"))
+    audio_io.write(tmp / "prompt.wav", speechlike_waves(np, np.random.default_rng(17), 1)[0], SAMPLE_RATE)
 
-        cfm_cfg = CFMConfig(vocab_size=2000, predict_duration=True)
-        decoder = ConditionalFlowMatchingWithHifiGan.from_config(
-            cfm_cfg, voc_cfg, BF16_INFERENCE, generator=torch.Generator().manual_seed(1), device="cpu"
-        )
-        sd = {**{f"model.{k}": v for k, v in decoder.model.state_dict().items()},
-              **{f"vocoder.{k}": v for k, v in decoder.vocoder.state_dict().items()}}
-        write_hf_dir(torch, tmp / "decoder", sd, {"model_config": dataclasses.asdict(cfm_cfg), "vocoder_config": dataclasses.asdict(voc_cfg)})
-        lm_cfg = LlamaConfig()
-        lm = LlamaLM(lm_cfg, BF16_INFERENCE)
-        init_random_weights(lm, torch.Generator().manual_seed(2))
-        with torch.no_grad():  # a trained LM never emits ids past its tokenizer's vocabulary: zero logits there
-            lm.lm_head.weight[tok.vocab_size + 2 :] = 0.0
-        write_hf_dir(torch, tmp / "lm" / "hf", lm.state_dict(), {"model_type": "llama", **dataclasses.asdict(lm_cfg)})
-        del decoder, lm
-        config = config_from_dict({
-            "model": {"path": str(tmp / "lm"), "vocab_size": tok.vocab_size, "pad_token_id": 0, "bos_token_id": None, "eos_token_id": 1},
-            "s2u": {"dense_model_name": CONT_ENCODER[0], "quantizer_model_name": CONT_ENCODER[1], "vocab_size": n_units,
-                    "tokenizer_path": str(tmp / "tokenizer.json")},
-        })
-        print(json.dumps({"phase": "continuation_setup", "seconds": time.perf_counter() - t0, "bpe_vocab": tok.vocab_size}))
+    cfm_cfg = CFMConfig(vocab_size=2000, predict_duration=True)
+    decoder = ConditionalFlowMatchingWithHifiGan.from_config(
+        cfm_cfg, voc_cfg, BF16_INFERENCE, generator=torch.Generator().manual_seed(1), device="cpu"
+    )
+    sd = {**{f"model.{k}": v for k, v in decoder.model.state_dict().items()},
+          **{f"vocoder.{k}": v for k, v in decoder.vocoder.state_dict().items()}}
+    write_hf_dir(torch, tmp / "decoder", sd, {"model_config": dataclasses.asdict(cfm_cfg), "vocoder_config": dataclasses.asdict(voc_cfg)})
+    lm_cfg = LlamaConfig()
+    lm = LlamaLM(lm_cfg, BF16_INFERENCE)
+    init_random_weights(lm, torch.Generator().manual_seed(2))
+    with torch.no_grad():  # a trained LM never emits ids past its tokenizer's vocabulary: zero logits there
+        lm.lm_head.weight[tok.vocab_size + 2 :] = 0.0
+    write_hf_dir(torch, tmp / "lm" / "hf", lm.state_dict(), {"model_type": "llama", **dataclasses.asdict(lm_cfg)})
+    del decoder, lm
+    config = continuation_config(config_from_dict, tmp, tok.vocab_size)
+    print(json.dumps({"phase": "continuation_setup", "seconds": time.perf_counter() - t0, "bpe_vocab": tok.vocab_size}))
 
-        dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(tmp / "decoder", device="cuda")
-        runs = (("greedy", dict(temperature=0.0)), ("sampled", dict(temperature=1.0, top_k=0, top_p=1.0, seed=3)),
-                ("sampled_again", dict(temperature=1.0, top_k=0, top_p=1.0, seed=3)))
-        with M.mrf_stage_fusion(True):
-            generate_speechlm(config, str(tmp / "prompt.wav"), max_new_tokens=4)  # warm-up: loaders, allocator
-            for label, kw in runs:
-                out_wav = tmp / f"{label}.wav"
-                torch.cuda.synchronize()
-                A.flash_attention.launches = C.assign_kernel.launches = 0
-                M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
-                t1 = time.perf_counter()
-                result = generate_speechlm(config, str(tmp / "prompt.wav"), str(out_wav), str(tmp / "decoder"), max_new_tokens=CONT_NEW_TOKENS, **kw)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t1
-                launches = {
-                    "flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
-                    "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
-                }
-                units, gen_units = result["units"], result["generated_units"]
-                ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
-                frames = int(dec.model.predict_durations(ids).sum())
-                bound = dec._duration_bound(ids)
-                n_samples = int(voc_cfg.waveform_lengths(frames))
-                # HuBERT-base to layer 6 + 16 euler steps x 4 CFM layers; 1 K4; 3 K3 in the one vocoder call
-                expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3}
-                prompt_units = len(units) - len(gen_units)
-                record = {
-                    "phase": f"continuation_{label}", "prompt_units": prompt_units, "generated_units": len(gen_units),
-                    "frames": frames, "decoder_bound": bound, "samples": n_samples, "launches": launches,
-                    "expected": expected, "wall_seconds": wall, "audio_seconds": n_samples / SAMPLE_RATE,
-                }
-                print(json.dumps(record))
-                if launches != expected:
-                    fail(f"continuation {label}: launches {launches} != expected {expected}")
-                if not out_wav.is_file() or audio_io.info(out_wav) != (SAMPLE_RATE, 1, n_samples) or result["waveform"].size != n_samples:
-                    fail(f"continuation {label}: {out_wav.name} missing or not {n_samples} samples at 16 kHz")
-                if len(units) == 0 or int(units.min()) < 0 or int(units.max()) >= n_units:
-                    fail(f"continuation {label}: units outside [0, {n_units})")
-                results[label] = {"launches": launches, "frames": frames, "bound": bound, "prompt_frames": ENC_FRAMES, "units": units}
-            if not np.array_equal(results["sampled"]["units"], results["sampled_again"]["units"]):
-                fail("continuation: the same seed gave different units")
-            del results["sampled_again"]
+    dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(tmp / "decoder", device="cuda")
+    runs = (("greedy", dict(temperature=0.0)), ("sampled", dict(temperature=1.0, top_k=0, top_p=1.0, seed=3)),
+            ("sampled_again", dict(temperature=1.0, top_k=0, top_p=1.0, seed=3)))
+    with M.mrf_stage_fusion(True):
+        generate_speechlm(config, str(tmp / "prompt.wav"), max_new_tokens=4)  # warm-up: loaders, allocator
+        for label, kw in runs:
+            out_wav = tmp / f"{label}.wav"
+            torch.cuda.synchronize()
+            A.flash_attention.launches = C.assign_kernel.launches = 0
+            M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+            t1 = time.perf_counter()
+            result = generate_speechlm(config, str(tmp / "prompt.wav"), str(out_wav), str(tmp / "decoder"), max_new_tokens=CONT_NEW_TOKENS, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = {
+                "flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+            }
+            units, gen_units = result["units"], result["generated_units"]
+            ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
+            frames = int(dec.model.predict_durations(ids).sum())
+            bound = dec._duration_bound(ids)
+            n_samples = int(voc_cfg.waveform_lengths(frames))
+            # HuBERT-base to layer 6 + 16 euler steps x 4 CFM layers; 1 K4; 3 K3 in the one vocoder call
+            expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3}
+            prompt_units = len(units) - len(gen_units)
+            record = {
+                "phase": f"continuation_{label}", "prompt_units": prompt_units, "generated_units": len(gen_units),
+                "frames": frames, "decoder_bound": bound, "samples": n_samples, "launches": launches,
+                "expected": expected, "wall_seconds": wall, "audio_seconds": n_samples / SAMPLE_RATE,
+            }
+            print(json.dumps(record))
+            if launches != expected:
+                fail(f"continuation {label}: launches {launches} != expected {expected}")
+            if not out_wav.is_file() or audio_io.info(out_wav) != (SAMPLE_RATE, 1, n_samples) or result["waveform"].size != n_samples:
+                fail(f"continuation {label}: {out_wav.name} missing or not {n_samples} samples at 16 kHz")
+            if len(units) == 0 or int(units.min()) < 0 or int(units.max()) >= n_units:
+                fail(f"continuation {label}: units outside [0, {n_units})")
+            results[label] = {"launches": launches, "frames": frames, "bound": bound, "prompt_frames": ENC_FRAMES, "units": units}
+        if not np.array_equal(results["sampled"]["units"], results["sampled_again"]["units"]):
+            fail("continuation: the same seed gave different units")
+        del results["sampled_again"]
 
-            # the time split of one greedy run, piece by piece, on the loaded pieces
-            enc = _make_encoder(config, device="cuda")
-            lm = load_lm_from_hf(tmp / "lm" / "hf", device="cuda")
-            wav, _ = audio_io.read(tmp / "prompt.wav")
-            split = {}
+        # the time split of one greedy run, piece by piece, on the loaded pieces
+        enc = _make_encoder(config, device="cuda")
+        lm = load_lm_from_hf(tmp / "lm" / "hf", device="cuda")
+        wav, _ = audio_io.read(tmp / "prompt.wav")
+        split = {}
 
-            def clock(name, fn):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-                split[name] = (time.perf_counter() - t) * 1e3
-                return out
+        def clock(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            split[name] = (time.perf_counter() - t) * 1e3
+            return out
 
-            with torch.no_grad():
-                enc_units = clock("encode_ms", lambda: enc(wav)["units"]).cpu().numpy()
-                prompt = torch.tensor([[t + 2 for t in tok.encode(units_to_unicode(enc_units))]], device="cuda")
-                p = prompt.shape[1]
-                cache = lm.init_cache(1, p + CONT_NEW_TOKENS)
-                logits, _ = clock("lm_prefill_ms", lambda: lm(prompt, cache=cache, cache_index=0))
-                tok_id = logits[:, -1].argmax(-1)
+        with torch.no_grad():
+            enc_units = clock("encode_ms", lambda: enc(wav)["units"]).cpu().numpy()
+            prompt = torch.tensor([[t + 2 for t in tok.encode(units_to_unicode(enc_units))]], device="cuda")
+            p = prompt.shape[1]
+            cache = lm.init_cache(1, p + CONT_NEW_TOKENS)
+            logits, _ = clock("lm_prefill_ms", lambda: lm(prompt, cache=cache, cache_index=0))
+            tok_id = logits[:, -1].argmax(-1)
 
-                def decode():
-                    nonlocal tok_id
-                    for i in range(CONT_NEW_TOKENS - 1):
-                        step, _ = lm(tok_id[:, None], cache=cache, cache_index=p + i)
-                        tok_id = step[:, -1].argmax(-1)
+            def decode():
+                nonlocal tok_id
+                for i in range(CONT_NEW_TOKENS - 1):
+                    step, _ = lm(tok_id[:, None], cache=cache, cache_index=p + i)
+                    tok_id = step[:, -1].argmax(-1)
 
-                clock("lm_decode_ms", decode)
-                ids = torch.from_numpy(results["greedy"]["units"].astype(np.int64) + 1)[None].cuda()
-                mel, _ = clock("decoder_ms", lambda: dec.model.sample(
-                    ids, 0.0625, 1.0, generator=torch.Generator(device="cuda").manual_seed(0), max_frames=dec._duration_bound(ids)))
-                clock("vocoder_ms", lambda: dec.vocoder(mel))
-            split["ms_per_token"] = split["lm_decode_ms"] / (CONT_NEW_TOKENS - 1)
-            split["tokens_per_second"] = 1e3 / split["ms_per_token"]
-            print(json.dumps({"phase": "continuation_split", "prompt_tokens": p, "new_tokens": CONT_NEW_TOKENS, **split}))
-            results["split"] = split
-            del enc, lm, dec
+            clock("lm_decode_ms", decode)
+            ids = torch.from_numpy(results["greedy"]["units"].astype(np.int64) + 1)[None].cuda()
+            mel, _ = clock("decoder_ms", lambda: dec.model.sample(
+                ids, 0.0625, 1.0, generator=torch.Generator(device="cuda").manual_seed(0), max_frames=dec._duration_bound(ids)))
+            clock("vocoder_ms", lambda: dec.vocoder(mel))
+        split["ms_per_token"] = split["lm_decode_ms"] / (CONT_NEW_TOKENS - 1)
+        split["tokens_per_second"] = 1e3 / split["ms_per_token"]
+        print(json.dumps({"phase": "continuation_split", "prompt_tokens": p, "new_tokens": CONT_NEW_TOKENS, **split}))
+        results["split"] = split
+        del enc, lm, dec
     torch.cuda.empty_cache()
     return results
+
+
+def write_slm21_tree(np, audio_io, root: Path) -> dict:
+    """An sLM21-shaped tree: ``lexical/test`` (SLM21_PAIRS word pairs of
+    0.4-1.2 s) and ``syntactic/test`` (SLM21_PAIRS sentence pairs of 2-5 s),
+    speech-like waves from a seed, and each task's gold.csv (id, filename,
+    correct, frequency or type, subset). Returns {task: [names]}."""
+    rng = np.random.default_rng(20)
+    names = {}
+    for task, by, cats, seconds in (("lexical", "frequency", ("high", "mid", "low", "oov"), (0.4, 1.2)),
+                                    ("syntactic", "type", ("agreement", "anaphor", "binding", "filler_gap"), (2, 5))):
+        waves = speechlike_waves(np, rng, 2 * SLM21_PAIRS, seconds)
+        rows, names[task] = [], []
+        for pair in range(SLM21_PAIRS):
+            for correct in (1, 0):
+                name = f"{task[:3]}_{pair:03d}_{correct}"
+                audio_io.write(root / task / "test" / f"{name}.wav", waves[2 * pair + 1 - correct], SAMPLE_RATE)
+                rows.append(f"{pair},{name}.wav,{correct},{cats[pair % len(cats)]},test")
+                names[task].append(name)
+        (root / task / "gold.csv").write_text(f"id,filename,correct,{by},subset\n" + "\n".join(rows) + "\n")
+    return names
+
+
+def slm21_phase(torch, np, A, C) -> dict:
+    """The speech LM's sLM21 evaluation at full width: ``tokenize_slm21``
+    (HuBERT-base to layer 6 + 100 centers, random weights from a seed, batch
+    8 at 20-s padding, the continuation phase's BPE) over an sLM21-shaped
+    tree, then ``evaluate`` with the 12 x 768 LM (random weights, bf16) at
+    batch_size_per_device 96: launches, every name scored and finite, the
+    four aggregate numbers in [0, 1], and one scoring batch in f32 on the
+    card against the CPU."""
+    from speech_resynth_torch.core.config import config_from_dict
+    from speech_resynth_torch.core.precision import BF16_INFERENCE, FLOAT32
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.hubert import HubertConfig
+    from speech_resynth_torch.models.llama import LlamaConfig, LlamaLM, sequence_pseudo_log_prob
+    from speech_resynth_torch.pipeline.data import load_named_units_from_json
+    from speech_resynth_torch.pipeline.slm21_native import read_score_file
+    from speech_resynth_torch.pipeline.speechlm import evaluate, tokenize_slm21
+    from speech_resynth_torch.text.units import units_to_unicode
+    from speech_resynth_torch.tokenizers.bpe import BpeTokenizer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slm21_") as tmp:
+        tmp = Path(tmp)
+        names = write_slm21_tree(np, audio_io, tmp / "sLM21")
+        tok = train_bpe(np, BpeTokenizer, units_to_unicode, CONT_ENCODER[2])
+        tok.save(str(tmp / "tokenizer.json"))
+        unit = tmp / "unit"
+        config = config_from_dict({
+            "dataset": {
+                "swuggy_dev_file": str(unit / "lexical/dev.json"), "sblimp_dev_file": str(unit / "syntactic/dev.json"),
+                "swuggy_test_file": str(unit / "lexical/test.json"), "sblimp_test_file": str(unit / "syntactic/test.json"),
+                "swuggy_dir": str(tmp / "sLM21/lexical"), "sblimp_dir": str(tmp / "sLM21/syntactic"),
+                "result_dir": str(tmp / "results"),
+            },
+            "dataloader": {"batch_size_per_device": SLM21_BATCH},
+            "model": {"vocab_size": tok.vocab_size, "pad_token_id": 0, "bos_token_id": None, "eos_token_id": 1},
+            "s2u": {"dense_model_name": CONT_ENCODER[0], "quantizer_model_name": CONT_ENCODER[1], "vocab_size": CONT_ENCODER[2],
+                    "tokenizer_path": str(tmp / "tokenizer.json")},
+        })
+        tokenize_slm21(config, device="cuda")  # warm-up: the encoder's load, cuDNN plans
+        torch.cuda.synchronize()
+        A.flash_attention.launches = C.assign_kernel.launches = 0
+        t0 = time.perf_counter()
+        tokenize_slm21(config, device="cuda")
+        torch.cuda.synchronize()
+        tokenize_s = time.perf_counter() - t0
+        tokenize_launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches}
+        n_files = sum(len(v) for v in names.values())
+        enc_batches = sum(-(-len(v) // SLM21_ENC_BATCH) for v in names.values())
+        expected = {"flash_attention": 6 * enc_batches, "codebook_assign": enc_batches}
+        print(json.dumps({"phase": "slm21_tokenize", "files": n_files, "batches": enc_batches, "seconds": tokenize_s,
+                          "files_per_second": n_files / tokenize_s, "launches": tokenize_launches, "expected": expected}))
+        if tokenize_launches != expected:
+            fail(f"tokenize_slm21 launches {tokenize_launches} != expected {expected} (6 K1 + 1 K4 per batch)")
+        tokenized = {task: json.loads((unit / task / "test.json").read_text()) for task in names}
+        for task, items in tokenized.items():
+            if sorted(items) != sorted(names[task]) or not all(items.values()):
+                fail(f"tokenize_slm21 {task}: names {len(items)} of {len(names[task])}, or an empty BPE sequence")
+
+        cfg = LlamaConfig()
+        lm = LlamaLM(cfg, BF16_INFERENCE)
+        init_random_weights(lm, torch.Generator().manual_seed(21))
+        lm = lm.to("cuda").eval()
+        batches = {task: list(load_named_units_from_json(str(unit / task / "test.json"), SLM21_BATCH, 2)) for task in names}
+        scoring_shapes = [list(b["input_ids"].shape) for task in names for b in batches[task]]
+        evaluate(config, lm)  # warm-up
+        torch.cuda.synchronize()
+        A.flash_attention.launches = 0
+        t1 = time.perf_counter()
+        result = evaluate(config, lm)
+        torch.cuda.synchronize()
+        evaluate_s = time.perf_counter() - t1
+        scoring_launches = {"flash_attention": A.flash_attention.launches}
+        expected = {"flash_attention": cfg.num_hidden_layers * len(scoring_shapes)}
+        for task in names:
+            scores = read_score_file(tmp / "results" / task / "test.txt")
+            if list(scores) != list(tokenized[task]) or not all(math.isfinite(v) for v in scores.values()):
+                fail(f"sLM21 {task}: {len(scores)} scores for {len(names[task])} names, or a non-finite score")
+        csv_rows = (tmp / "results/scores/score.csv").read_text().splitlines()
+        if scoring_launches != expected or result is None or len(csv_rows) != 5 or not all(0.0 <= v <= 1.0 for v in result.values()):
+            fail(f"sLM21 evaluate: launches {scoring_launches} (expected {expected}), result {result}, score.csv {csv_rows}")
+        ids = torch.from_numpy(batches["syntactic"][0]["input_ids"]).to("cuda", torch.long)
+        with torch.inference_mode():
+            batch_ms = time_ms(torch, lambda: sequence_pseudo_log_prob(lm(ids)[0], ids), 5)
+        profile_phase(torch, "slm21_tokenize", lambda: tokenize_slm21(config, device="cuda"), enc_batches)
+        profile_phase(torch, "slm21_scoring", lambda: evaluate(config, lm), len(scoring_shapes))
+        items = sum(len(v) for v in names.values())
+        print(json.dumps({
+            "phase": "slm21_scoring", "items": items, "batch": SLM21_BATCH, "scoring_batch_shapes": scoring_shapes,
+            "launches": scoring_launches, "expected": expected, "evaluate_seconds": evaluate_s,
+            "items_per_second": items / evaluate_s, "ms_per_scoring_batch": batch_ms,
+            "ms_per_scoring_batch_shape": list(ids.shape), "result": result,
+        }))
+        del lm
+        torch.cuda.empty_cache()
+
+        # one scoring batch in f32 (TF32 off), the card against the CPU's plain path: O(10)
+        # per-token log-probs averaged over the row, summed in another order through 12 layers
+        ids = torch.from_numpy(batches["lexical"][0]["input_ids"]).long()
+        outs = {}
+        for device in ("cuda", "cpu"):
+            lm32 = LlamaLM(cfg, FLOAT32)
+            init_random_weights(lm32, torch.Generator().manual_seed(21))
+            lm32 = lm32.to(device).eval()
+            with torch.inference_mode():
+                outs[device] = sequence_pseudo_log_prob(lm32(ids.to(device))[0], ids.to(device)).cpu()
+            del lm32
+        tol = 1e-3
+        err = float((outs["cuda"] - outs["cpu"]).abs().max())
+        print(json.dumps({"phase": "slm21_scoring_vs_cpu_plain", "shape": list(ids.shape), "max_abs_err": err, "tol": tol}))
+        if err > tol or not torch.isfinite(outs["cuda"]).all():
+            fail(f"card f32 sLM21 scores differ from the CPU plain path: {err}")
+    torch.cuda.empty_cache()
+    frames = [HubertConfig().num_frames(int(s * SAMPLE_RATE)) for s in (0.4, 5)]  # the files' frame range
+    return {"tokenize": tokenize_launches, "frames": frames, "scoring": scoring_launches, "scoring_shapes": scoring_shapes,
+            "encoder_batches": enc_batches, "tokenize_seconds": tokenize_s, "items_per_second": items / evaluate_s,
+            "ms_per_scoring_batch": batch_ms}
+
+
+def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
+    """``continue_speech(speculative=True)`` at B = 1 with stage fusion on,
+    on the continuation phase's prompt, LM, tokenizer and decoder (in
+    ``tmp``), greedy and sampled (twice with one seed), each with the
+    prompt's encoding, as ``generate_speechlm`` runs it: launches, unit range,
+    output length, reproducibility. Then ``lookup_decode`` against
+    ``greedy_decode`` on the prompt (equal, or equal up to a near-tie:
+    tests/test_torch_cuda.py's rule), EOS handling of ``lookup_sample_decode``,
+    tokens per iteration and ms per token beside plain decoding in this run,
+    and a small LM's speculative samples against ``sample_decode``'s by
+    total variation (N = 4 096, T = 4; at most max(3 x noise floor, 0.06))."""
+    from test_torch_cuda import speculative_greedy_divergence
+
+    from speech_resynth_torch.core.config import config_from_dict
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan, init_random_weights
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.models.llama import (
+        LlamaConfig, LlamaLM, greedy_decode, lookup_decode, lookup_sample_decode, sample_decode,
+    )
+    from speech_resynth_torch.pipeline.generate import continue_speech
+    from speech_resynth_torch.pipeline.speechlm import _make_encoder, load_lm_from_hf
+    from speech_resynth_torch.text.units import units_to_unicode
+    from speech_resynth_torch.tokenizers.bpe import BpeTokenizer
+
+    voc_cfg = HifiGanConfig()
+    tok = BpeTokenizer.from_file(str(tmp / "tokenizer.json"))
+    config = continuation_config(config_from_dict, tmp, tok.vocab_size)
+    enc = _make_encoder(config, device="cuda")
+    lm = load_lm_from_hf(tmp / "lm" / "hf", device="cuda")
+    dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(tmp / "decoder", device="cuda")
+    wav, _ = audio_io.read(tmp / "prompt.wav")
+    n_units = CONT_ENCODER[2]
+    results = {}
+    runs = (("greedy", dict(temperature=0.0)), ("sampled", dict(temperature=1.0, seed=3)), ("sampled_again", dict(temperature=1.0, seed=3)))
+    with M.mrf_stage_fusion(True):
+        continue_speech(enc(wav)["units"].cpu().numpy(), tok, lm, dec, max_new_tokens=4, speculative=True)  # warm-up
+        for label, kw in runs:
+            generator = torch.Generator(device="cuda").manual_seed(kw.pop("seed", 0))
+            torch.cuda.synchronize()
+            A.flash_attention.launches = C.assign_kernel.launches = 0
+            M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+            t0 = time.perf_counter()
+            prompt_units = enc(wav)["units"].cpu().numpy()
+            result = continue_speech(prompt_units, tok, lm, dec, max_new_tokens=CONT_NEW_TOKENS, eos_token_id=1,
+                                     num_special_tokens=2, generator=generator, speculative=True, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {
+                "flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+            }
+            units = result["units"]
+            ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
+            frames = int(dec.model.predict_durations(ids).sum())
+            bound = dec._duration_bound(ids)
+            n_samples = int(voc_cfg.waveform_lengths(frames))
+            expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3}
+            print(json.dumps({
+                "phase": f"continuation_speculative_{label}", "prompt_units": len(prompt_units),
+                "generated_units": len(result["generated_units"]), "frames": frames, "decoder_bound": bound,
+                "samples": n_samples, "launches": launches, "expected": expected, "wall_seconds": wall,
+            }))
+            if launches != expected:
+                fail(f"speculative continuation {label}: launches {launches} != expected {expected}")
+            if result["waveform"].size != n_samples or not np.isfinite(result["waveform"]).all():
+                fail(f"speculative continuation {label}: waveform of {result['waveform'].size} samples, not {n_samples}")
+            if len(units) == 0 or int(units.min()) < 0 or int(units.max()) >= n_units:
+                fail(f"speculative continuation {label}: units outside [0, {n_units})")
+            results[label] = {"launches": launches, "frames": frames, "bound": bound, "prompt_frames": ENC_FRAMES, "units": units}
+    if not np.array_equal(results["sampled"]["units"], results["sampled_again"]["units"]):
+        fail("speculative continuation: the same seed gave different units")
+    del results["sampled_again"]
+
+    # the decoders on the prompt's tokens: the greedy rule, EOS handling, and speed beside plain decoding
+    prompt = torch.tensor([[t + 2 for t in tok.encode(units_to_unicode(prompt_units))]], device="cuda")
+    report = speculative_greedy_divergence(lm, prompt, CONT_NEW_TOKENS)
+    print(json.dumps({"phase": "continuation_speculative_greedy_rule", "prompt_tokens": prompt.shape[1], **report}))
+    if not report["ok"]:
+        fail(f"lookup_decode differs from greedy_decode away from a near-tie: {report}")
+    sampled = lookup_sample_decode(lm, prompt, CONT_NEW_TOKENS, 1, torch.Generator(device="cuda").manual_seed(5))[0, prompt.shape[1]:]
+    hits = (sampled == 1).nonzero()
+    if int(sampled.min()) < 0 or int(sampled.max()) >= lm.config.vocab_size or (len(hits) and not (sampled[int(hits[0]):] == 1).all()):
+        fail("lookup_sample_decode: ids out of range, or not EOS after the first EOS")
+
+    def clocked(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    speed = {}
+    for label, plain_fn, spec_fn in (
+        ("greedy", lambda: greedy_decode(lm, prompt, CONT_NEW_TOKENS),
+         lambda: lookup_decode(lm, prompt, CONT_NEW_TOKENS, return_stats=True)),
+        ("sampled", lambda: sample_decode(lm, prompt, CONT_NEW_TOKENS, 1, torch.Generator(device="cuda").manual_seed(6)),
+         lambda: lookup_sample_decode(lm, prompt, CONT_NEW_TOKENS, 1, torch.Generator(device="cuda").manual_seed(6), return_stats=True)),
+    ):
+        _, plain_ms = clocked(plain_fn)
+        (_, stats), spec_ms = clocked(spec_fn)
+        speed[label] = {**stats, "speculative_ms_per_token": spec_ms / max(stats["generated"], 1),
+                        "plain_ms_per_token": plain_ms / CONT_NEW_TOKENS, "speculative_ms": spec_ms, "plain_ms": plain_ms}
+    print(json.dumps({"phase": "continuation_speculative_speed", "prompt_tokens": prompt.shape[1], "new_tokens": CONT_NEW_TOKENS,
+                      "note": "prefill included; B = 1; bf16", **speed}))
+    profile_phase(torch, "lm_greedy_decode", lambda: greedy_decode(lm, prompt, CONT_NEW_TOKENS), 1)
+    profile_phase(torch, "lm_lookup_decode", lambda: lookup_decode(lm, prompt, CONT_NEW_TOKENS), 1)
+    results["speed"] = speed
+    del enc, lm, dec
+    torch.cuda.empty_cache()
+
+    # distribution: a small f32 LM, 4 096 rows of one prompt, four new tokens
+    small = LlamaLM(LlamaConfig(vocab_size=50, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=2), FLOAT32)
+    init_random_weights(small, torch.Generator().manual_seed(7))
+    small = small.cuda().eval()
+    N, T = 4096, 4
+    rows = torch.tensor([[2, 3, 4, 2, 3]], device="cuda").repeat(N, 1)
+    kw = dict(temperature=0.8, top_k=8, top_p=0.9)
+    ref, ctl = (sample_decode(small, rows, T, 1, torch.Generator(device="cuda").manual_seed(s), **kw)[:, 5:].cpu().numpy() for s in (0, 1))
+    got = lookup_sample_decode(small, rows, T, 1, torch.Generator(device="cuda").manual_seed(2), ngram=2, spec_tokens=3, **kw)[:, 5:].cpu().numpy()
+
+    def tv(a, b, t):
+        ha, hb = (np.bincount(x[:, t], minlength=50) / len(x) for x in (a, b))
+        return 0.5 * float(np.abs(ha - hb).sum())
+
+    tvs = [{"t": t, "tv": tv(ref, got, t), "noise_floor": tv(ref, ctl, t)} for t in range(T)]
+    print(json.dumps({"phase": "continuation_speculative_distribution", "N": N, "T": T, "bound": "max(3 x noise floor, 0.06)", "tv": tvs}))
+    if any(r["tv"] > max(3 * r["noise_floor"], 0.06) for r in tvs):
+        fail(f"lookup_sample_decode's marginals differ from sample_decode's: {tvs}")
+    return results
+
+
+def write_libritts_tree(np, audio_io, root: Path) -> dict:
+    """A LibriTTS-R-shaped tree at 24 kHz: PRE_FILES speech-like files of
+    4-10 s, each with 0.2-0.6 s of near-silence before and after (for the
+    VAD), and its ``.normalized.txt``; 32 in ``train-clean-100``, 8 in
+    ``dev-clean``, 8 in ``test-clean``. Returns {name: samples}."""
+    rng = np.random.default_rng(22)
+    lengths = {}
+    for i, wave in enumerate(speechlike_waves(np, rng, PRE_FILES, (4, 10), PRE_RATE)):
+        split = "train-clean-100" if i < 32 else "dev-clean" if i < 40 else "test-clean"
+        pads = rng.integers(int(0.2 * PRE_RATE), int(0.6 * PRE_RATE), 2)
+        wave = np.concatenate([0.001 * rng.standard_normal(pads[0]), wave, 0.001 * rng.standard_normal(pads[1])]).astype(np.float32)
+        name = f"{split}/{100 + i % 5}/{i:03d}/{100 + i % 5}_{i:03d}_000001"
+        audio_io.write(root / f"{name}.wav", wave, PRE_RATE)
+        (root / f"{name}.normalized.txt").write_text(f"utterance number {i}\n")
+        lengths[name] = len(wave)
+    return lengths
+
+
+def preprocess_phase(torch, np, A, C) -> dict:
+    """``preprocess`` (resample with VAD, tokenize, extract_features) on a
+    LibriTTS-R-shaped tree at 24 kHz with the full-width mHuBERT + 2000-center
+    encoder of configs/resynth/mhubert-expresso-2000.yaml (random weights from
+    a seed): launches of the tokenize stage; sample rates and lengths before
+    and after the trim; every file in the unit JSONs with as many units as
+    durations, transcripts where the tree has them; mel frame counts;
+    idempotence; the card's resample and log-mel against the CPU's; and one
+    40-s batch of 8 at 44.1 kHz, whose peak memory shows the polyphase form's
+    O(T)."""
+    from speech_resynth_torch.core.config import config_from_dict
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.dsp.mel import log_mel_spectrogram
+    from speech_resynth_torch.dsp.resample import resample as resample_op
+    from speech_resynth_torch.models.hubert import HubertConfig
+    from speech_resynth_torch.pipeline import preprocess as P
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as tmp:
+        tmp = Path(tmp)
+        lengths = write_libritts_tree(np, audio_io, tmp / "orig")
+
+        def config(wav_dir, vad):
+            return config_from_dict({
+                "dataset": {
+                    "wav_dir": str(tmp / wav_dir), "wav_dir_orig": str(tmp / "orig"), "spectrogram_dir": str(tmp / wav_dir / "spectrogram"),
+                    "vad": vad, "preprocess_batch_size": 16, "ext_audio": ".wav",
+                    "train_file": str(tmp / "units/train.json"), "dev_file": str(tmp / "units/dev.json"),
+                    "test_file": str(tmp / "units/test.json"),
+                },
+                "flow_matching": {"dense_model_name": ENCODER[0], "quantizer_model_name": ENCODER[1], "vocab_size": ENCODER[2]},
+            })
+
+        # the lengths before the trim: the resample stage without VAD
+        P.resample(config("untrimmed", False), device="cuda")
+        untrimmed = {}
+        for name, n in lengths.items():
+            info = audio_io.info(tmp / "untrimmed" / f"{name}.wav")
+            untrimmed[name] = info[2]
+            if info != (SAMPLE_RATE, 1, -(-n * SAMPLE_RATE // PRE_RATE)):
+                fail(f"resample: {name} is {info}, not 16 kHz mono of ceil({n} * 2 / 3) samples")
+
+        stage_s = {}
+        stages = {k: getattr(P, k) for k in ("resample", "tokenize", "extract_features")}
+
+        def clocked(name):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = stages[name](*args, **kwargs)
+                torch.cuda.synchronize()
+                stage_s[name] = time.perf_counter() - t
+                return out
+            return run
+
+        cfg = config("16k", True)
+        A.flash_attention.launches = C.assign_kernel.launches = 0
+        for name in stages:
+            setattr(P, name, clocked(name))
+        try:
+            t0 = time.perf_counter()
+            P.preprocess(cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for name, fn in stages.items():
+                setattr(P, name, fn)
+        launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches}
+        split_files = {"train": 32, "dev": 8, "test": 8}
+        batches = [min(PRE_TOKENIZE_BATCH, n - i) for n in split_files.values() for i in range(0, n, PRE_TOKENIZE_BATCH)]
+        expected = {"flash_attention": 11 * len(batches), "codebook_assign": len(batches)}
+        if launches != expected:
+            fail(f"preprocess launches {launches} != expected {expected} (11 K1 + 1 K4 per tokenize batch)")
+
+        trimmed = {}
+        for name in lengths:
+            sr, ch, n = audio_io.info(tmp / "16k" / f"{name}.wav")
+            trimmed[name] = n
+            if (sr, ch) != (SAMPLE_RATE, 1) or not 0 < n <= untrimmed[name]:
+                fail(f"preprocess resample: {name} at {sr} Hz, {n} samples after the trim of {untrimmed[name]}")
+        for split, n_files in split_files.items():
+            units = json.loads((tmp / f"units/{split}.json").read_text())
+            if len(units) != n_files or any(len(u["units"]) != len(u["durations"]) or not u["units"] for u in units.values()):
+                fail(f"preprocess tokenize: {split}.json has {len(units)} of {n_files} files, or units and durations differ")
+            if any(int(min(u["units"])) < 0 or int(max(u["units"])) >= ENCODER[2] for u in units.values()):
+                fail(f"preprocess tokenize: {split} units outside [0, {ENCODER[2]})")
+            # dev and test transcripts resolve against wav_dir_orig (the tree has them); train against the 16 kHz tree
+            if split != "train" and not all(u["transcript"].startswith("utterance number") for u in units.values()):
+                fail(f"preprocess tokenize: {split} transcripts missing")
+        spec = tmp / "16k" / "spectrogram"
+        for name, n in trimmed.items():
+            mel = np.load(spec / f"{name}.npy")
+            if mel.shape != (max(1 + (n - 400) // 320, 0), 80) or not np.isfinite(mel).all():
+                fail(f"extract_features: {name} mel {mel.shape}, not ({1 + (n - 400) // 320}, 80) for {n} samples")
+        profile_phase(torch, "preprocess", lambda: P.preprocess(config("profiled", True), device="cuda"), len(batches))
+        stamps = {p: p.stat().st_mtime_ns for p in spec.glob("**/*.npy")}
+        P.extract_features(cfg, device="cuda")
+        if {p: p.stat().st_mtime_ns for p in spec.glob("**/*.npy")} != stamps:
+            fail("extract_features is not idempotent: a second run rewrote a file")
+
+        # the card against the CPU: resample (f32 products over the strided windows, ~34 taps a sample,
+        # O(1) samples: 1e-5) and the log-mel: the log of a bin ~40 dB below its frame's loudest, near the
+        # 1e-5 floor, turns the STFT's f32 rounding into up to 1.0e-3 on these files (the CPU's f32 against
+        # an f64 evaluation of the same formula), so two f32 evaluations may differ by twice that: 3e-3
+        names = sorted(lengths)[:8]
+        wavs, _, _ = audio_io.read_batch([tmp / "orig" / f"{n}.wav" for n in names], max(lengths[n] for n in names))
+        on_card, on_cpu = resample_op(torch.from_numpy(wavs).cuda(), PRE_RATE, SAMPLE_RATE).cpu(), resample_op(torch.from_numpy(wavs), PRE_RATE, SAMPLE_RATE)
+        resample_err = float((on_card - on_cpu).abs().max())
+        mel_card, mel_cpu = log_mel_spectrogram(on_cpu.cuda()).cpu(), log_mel_spectrogram(on_cpu)
+        mel_err = float((mel_card - mel_cpu).abs().max())
+        tol = {"resample": 1e-5, "log_mel": 3e-3}
+        print(json.dumps({"phase": "preprocess_vs_cpu_plain", "files": len(names), "resample_max_abs_err": resample_err,
+                          "log_mel_max_abs_err": mel_err, "tol": tol}))
+        if resample_err > tol["resample"] or mel_err > tol["log_mel"]:
+            fail(f"card resample / log-mel differ from the CPU's: {resample_err}, {mel_err}")
+
+    audio_min = sum(lengths.values()) / PRE_RATE / 60
+    record = {
+        "phase": "preprocess", "files": len(lengths), "audio_minutes": audio_min, "launches": launches, "expected": expected,
+        "tokenize_batches": batches, "wall_seconds": wall, "stage_seconds": stage_s, "seconds_per_audio_minute": wall / audio_min,
+        "trimmed_share": 1 - sum(trimmed.values()) / sum(untrimmed.values()),
+        "note": "tokenize includes the encoder's construction (random weights from a seed, on the CPU)",
+    }
+    print(json.dumps(record))
+
+    # one 40-s batch of 8 at 44.1 kHz -> 16 kHz: the peak beside the input, and beside what an input
+    # zero-stuffed by L = 160 would take alone
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal((8, 40 * 44100)).astype(np.float32) * 0.1).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = resample_op(x, 44100, SAMPLE_RATE)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    t_ms = time_ms(torch, lambda: resample_op(x, 44100, SAMPLE_RATE), 5)
+    memory = {"phase": "resample_44k_memory", "batch": list(x.shape), "out": list(y.shape), "peak_bytes_above_input": peak,
+              "input_bytes": x.numel() * 4, "zero_stuffed_input_bytes": x.numel() * 4 * 160, "ms": t_ms,
+              "card_seconds_per_audio_minute": t_ms / 1e3 / (8 * 40 / 60)}
+    print(json.dumps(memory))
+    if y.shape != (8, 40 * SAMPLE_RATE) or peak > 8 * x.numel() * 4:
+        fail(f"44.1 kHz resample: out {tuple(y.shape)}, peak {peak} bytes above the input")
+    del x, y
+    torch.cuda.empty_cache()
+    frames = [HubertConfig().num_frames(n) for n in trimmed.values()]
+    record.update(batches=batches, key_frames=[min(frames), max(frames)])
+    return record
+
+
+def kmeans_fit_phase(torch, np, C) -> dict:
+    """``kmeans_fit``'s Lloyd iterations at k = 100 on 50 000 x 768 f32
+    seeded features (100 clusters), on the card and on the CPU from the same
+    k-means++ centers: the first step's ids equal on every frame clear of
+    ties (the codebook phase's rule), the inertias within 1e-4 relative
+    (f32 sums of 50 000 x 768 squares in another order, and any near-tie
+    flipped once moves its frame's share), and the fit's time on the card."""
+    from speech_resynth_torch.models.kmeans import _plusplus_init, kmeans_fit, lloyd
+
+    rng = np.random.default_rng(24)
+    means = rng.standard_normal((100, 768)).astype(np.float32)
+    data = torch.from_numpy((means[rng.integers(0, 100, 50_000)] + 0.5 * rng.standard_normal((50_000, 768))).astype(np.float32))
+    card = data.cuda()
+    init = _plusplus_init(torch.Generator(device="cuda").manual_seed(25), card, 100)
+    ids_card, ids_cpu = C.assign_reference(card, init).cpu(), C.assign_reference(data, init.cpu())
+    clear = clear_of_ties(torch, C, data, init.cpu())
+    mismatches = int((ids_card != ids_cpu)[clear].sum())
+    centers_card, inertia_card = lloyd(card, init, 10)  # also the warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lloyd(card, init, 10)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    centers_cpu, inertia_cpu = lloyd(data, init.cpu(), 10)
+    cpu_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, fit_inertia = kmeans_fit(card, 100, 10, generator=torch.Generator(device="cuda").manual_seed(25))
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t2) * 1e3
+    rel = abs(float(inertia_card) - float(inertia_cpu)) / float(inertia_cpu)
+    record = {
+        "phase": "kmeans_fit", "shape": [50_000, 768, 100], "iters": 10, "first_step_clear_mismatches": mismatches,
+        "first_step_near_ties": int((~clear).sum()), "inertia_card": float(inertia_card), "inertia_cpu": float(inertia_cpu),
+        "inertia_rel_diff": rel, "tol": 1e-4, "centers_max_abs_diff": float((centers_card.cpu() - centers_cpu).abs().max()),
+        "lloyd_10_ms_card": card_ms, "lloyd_10_ms_cpu": cpu_ms, "fit_ms_card": fit_ms, "fit_inertia": float(fit_inertia),
+    }
+    print(json.dumps(record))
+    if mismatches or rel > 1e-4 or not math.isfinite(float(fit_inertia)):
+        fail(f"kmeans_fit on the card differs from the CPU: {record}")
+    return record
 
 
 KERNEL_GROUPS = (
@@ -1342,6 +1880,7 @@ def main() -> int:
         import torch.nn.functional as F
 
         from speech_resynth_torch.models.hifigan import HifiGanConfig
+        from speech_resynth_torch.models.hubert import HubertConfig
         from speech_resynth_torch.ops import attention as A
         from speech_resynth_torch.ops import codebook as C
         from speech_resynth_torch.ops import fused_mrf as M
@@ -1385,7 +1924,12 @@ def main() -> int:
     streaming = streaming_phase(torch, np, M)
     lm_scoring, k1_lm = lm_scoring_phase(torch, F, A, np)
     k1.append(k1_lm)
-    continuation = continuation_phase(torch, np, A, C, M)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as lm_tmp:
+        continuation = continuation_phase(torch, np, A, C, M, Path(lm_tmp))
+        speculative = continuation_speculative_phase(torch, np, A, C, M, Path(lm_tmp))
+    slm21 = slm21_phase(torch, np, A, C)
+    preprocess = preprocess_phase(torch, np, A, C)
+    kmeans_fit_phase(torch, np, C)
     torch.cuda.synchronize()
 
     # data-dependent shapes, held after their runs: the duration config's 64-multiple
@@ -1400,10 +1944,21 @@ def main() -> int:
         k3.append(stage_path(torch, M, gen, voc_cfg, "streaming flush window", frames, 1))
     cont = continuation["greedy"]
     k1.append(attention_shape(torch, F, A, gen, "continuation encoder", 1, 12, cont["prompt_frames"], 64, cont["prompt_frames"], cont["prompt_frames"]))
-    for label in ("greedy", "sampled"):
-        run = continuation[label]
-        k1.append(attention_shape(torch, F, A, gen, f"continuation decoder ({label})", 1, 2, run["bound"], 128, run["frames"], run["frames"]))
-        k3.append(stage_path(torch, M, gen, voc_cfg, f"continuation decoder ({label})", run["bound"], 1))
+    for runs, prefix in ((continuation, "continuation"), (speculative, "speculative continuation")):
+        for label in ("greedy", "sampled"):
+            run = runs[label]
+            k1.append(attention_shape(torch, F, A, gen, f"{prefix} decoder ({label})", 1, 2, run["bound"], 128, run["frames"], run["frames"]))
+            k3.append(stage_path(torch, M, gen, voc_cfg, f"{prefix} decoder ({label})", run["bound"], 1))
+    # K1 and K4 at the sLM21 and preprocess shapes: tokenize_slm21's encoder (20-s padding), the LM's scoring
+    # forward (causal, no mask), and the preprocess tokenize stage's encoder (30-s padding)
+    slm21_frames = HubertConfig().num_frames(20 * SAMPLE_RATE)
+    k1.append(attention_shape(torch, F, A, gen, "slm21 tokenize", SLM21_ENC_BATCH, 12, slm21_frames, 64, *slm21["frames"]))
+    k4.append(codebook_shape(torch, C, gen, "slm21 tokenize", SLM21_ENC_BATCH * slm21_frames, CONT_ENCODER[2]))
+    for B_, L_ in sorted(set(map(tuple, slm21["scoring_shapes"]))):
+        k1.append(attention_shape(torch, F, A, gen, "slm21 scoring", B_, 12, L_, 64, L_, L_, causal=True, masked=False))
+    for b in sorted(set(preprocess["batches"])):
+        k1.append(attention_shape(torch, F, A, gen, "preprocess tokenize", b, 12, RESYNTH_FRAMES, 64, *preprocess["key_frames"]))
+        k4.append(codebook_shape(torch, C, gen, "preprocess tokenize", b * RESYNTH_FRAMES, ENCODER[2]))
 
     # the shape of every launch counted above, from each path's structure and frames
     by_path = {
@@ -1412,6 +1967,8 @@ def main() -> int:
         "streaming": streaming[False]["launches"], "streaming_fused": streaming[True]["launches"],
         "lm_scoring": lm_scoring,
         **{f"continuation_{k}": continuation[k]["launches"] for k in ("greedy", "sampled")},
+        **{f"continuation_speculative_{k}": speculative[k]["launches"] for k in ("greedy", "sampled")},
+        "slm21_tokenize": slm21["tokenize"], "slm21_scoring": slm21["scoring"], "preprocess_tokenize": preprocess["launches"],
     }
     shapes: dict = {}
 
@@ -1449,10 +2006,17 @@ def main() -> int:
         for frames in streaming[fused]["windows"]:
             vocoder_call(path, frames, 1, fused)
     add("flash_attention", "lm_scoring", [LM_BATCH, 12, LM_TOKENS, 64], 12)
-    for label in ("greedy", "sampled"):
-        run = continuation[label]
-        encoder_batch(f"continuation_{label}", run["prompt_frames"], batch=1, layers=6, centers=CONT_ENCODER[2])
-        decoder_batch(f"continuation_{label}", run["bound"], batch=1, fused=True)
+    for runs, prefix in ((continuation, "continuation"), (speculative, "continuation_speculative")):
+        for label in ("greedy", "sampled"):
+            run = runs[label]
+            encoder_batch(f"{prefix}_{label}", run["prompt_frames"], batch=1, layers=6, centers=CONT_ENCODER[2])
+            decoder_batch(f"{prefix}_{label}", run["bound"], batch=1, fused=True)
+    for _ in range(slm21["encoder_batches"]):
+        encoder_batch("slm21_tokenize", slm21_frames, batch=SLM21_ENC_BATCH, layers=6, centers=CONT_ENCODER[2])
+    for B_, L_ in slm21["scoring_shapes"]:
+        add("flash_attention", "slm21_scoring", [B_, 12, L_, 64], 12)
+    for b in preprocess["batches"]:
+        encoder_batch("preprocess_tokenize", RESYNTH_FRAMES, batch=b)
     for kernel, per_path in shapes.items():
         for path, counts in per_path.items():
             if sum(counts.values()) != by_path[path][kernel]:

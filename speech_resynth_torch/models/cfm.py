@@ -20,10 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import DEFAULT, Policy
+from ..dsp.mel import MEL_PAD_VALUE
 from ..ops.length_regulator import regulate_length
 from .transformer import ConvPositionEmbed, TimeConditionEmbed, Transformer, TransformerConfig, _linear
 
-MEL_PAD_VALUE = float(np.log(1e-5))  # log-compression of silence; pad-frame sentinel
 LOG_DOMAIN_OFFSET = 1.0  # durations are predicted as log(d + 1)
 
 

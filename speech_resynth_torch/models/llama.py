@@ -18,7 +18,14 @@ The logits come out in f32. ``greedy_decode`` and ``sample_decode`` run
 the prefill and then one cache step per token; ``temperature == 0`` is
 greedy; after EOS a row keeps emitting EOS. Sampling draws from a
 ``torch.Generator`` where the JAX package splits a key, so the two sample
-different sequences from one seed. ``scan_layers``, ``remat`` and
+different sequences from one seed.
+
+The speculative decoders ``lookup_decode`` (greedy, the same ids as
+``greedy_decode``) and ``lookup_sample_decode`` (the same distribution as
+``sample_decode``) verify the last committed token and S prompt-lookup
+drafts in one cache-path forward of 1 + S tokens per iteration, which never
+calls K1. They are a Python loop over that cache path; ``buf`` stays on the
+device and the host reads the commit length once per iteration. ``scan_layers``, ``remat`` and
 ``hidden_sharding`` are XLA compile and sharding devices with no
 counterpart here; the layers are unrolled.
 """
@@ -299,3 +306,164 @@ def sample_decode(
         return torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1)
 
     return _decode(model, prompt_ids, max_new_tokens, eos_token_id, select)
+
+
+def _propose_drafts(buf: torch.Tensor, n: int, *, p: int, ngram: int, spec_tokens: int) -> torch.Tensor:
+    """(b, S) prompt-lookup drafts: the continuation of the last earlier
+    occurrence of the trailing ``ngram``, else the last committed token
+    repeated. ``buf`` is the (b, cap) id buffer, ``n`` the number of tokens
+    generated so far (the last committed one is at ``p + n - 1``). Drafts at
+    or past that frontier repeat the last committed token."""
+    b, cap = buf.shape
+    frontier = p + n - 1
+    window = cap - ngram + 1  # candidate start positions of the n-gram match
+    ctx = buf[:, max(p + n - ngram, 0) :][:, :ngram]
+    match = torch.ones((b, window), dtype=torch.bool, device=buf.device)
+    for g in range(ngram):
+        match &= buf[:, g : g + window] == ctx[:, g : g + 1]
+    t_idx = torch.arange(window, device=buf.device)
+    # strictly before the trailing occurrence itself; windows past the
+    # frontier hold stale bytes and are excluded
+    valid = match & (t_idx[None, :] < p + n - ngram)
+    m = torch.where(valid, t_idx[None, :], -1).amax(dim=-1)
+    start = torch.where(m >= 0, m + ngram, max(frontier, 0))
+    idx = (start[:, None] + torch.arange(spec_tokens, device=buf.device)[None, :]).clamp(0, cap - 1)
+    return torch.where(idx <= frontier, torch.gather(buf, 1, idx), buf[:, frontier : frontier + 1])
+
+
+def _force_eos(out: torch.Tensor, done: torch.Tensor, eos: int) -> torch.Tensor:
+    """EOS from the first EOS of each row onward, and everywhere in rows already done."""
+    hit = (out == eos).long()
+    prior = (torch.cumsum(hit, dim=1) - hit) > 0
+    return torch.where(done[:, None] | prior, eos, out)
+
+
+@torch.inference_mode()
+def _lookup(model: LlamaLM, prompt_ids, max_new_tokens: int, eos_token_id: int, ngram: int, spec_tokens: int, first, verify):
+    """The shared loop of the speculative decoders. ``first`` maps the
+    prefill's last (b, V) logits to the first ids; ``verify(logits, drafts,
+    done)`` maps the (b, 1 + S, V) verify logits to the (b, 1 + S) block to
+    write and the (b,) per-row acceptance. Rows commit in lockstep at the
+    minimum acceptance, plus one. Returns (ids, generated, iterations)."""
+    prompt = torch.as_tensor(prompt_ids).to(model.device, torch.long)
+    b, p = prompt.shape
+    S = int(spec_tokens)
+    total = p + max_new_tokens
+    cap = total + S + 1  # a commit block may overshoot max_new_tokens; sliced off below
+    cache = model.init_cache(b, cap)
+    buf = torch.zeros((b, cap), dtype=torch.long, device=model.device)
+    buf[:, :p] = prompt
+    logits, cache = model(prompt, cache=cache, cache_index=0)
+    buf[:, p] = first(logits[:, -1])
+    done = buf[:, p] == eos_token_id
+    slot = torch.arange(1 + S, device=model.device)[None, :]
+    n, iters, all_done = 1, 0, bool(done.all())
+    while n < max_new_tokens and not all_done:
+        drafts = _propose_drafts(buf, n, p=p, ngram=ngram, spec_tokens=S)
+        x = torch.cat([buf[:, p + n - 1 : p + n], drafts], dim=1)
+        logits, cache = model(x, cache=cache, cache_index=p + n - 1)
+        out, acc_row = verify(logits, drafts, done)
+        acc = acc_row.amin()
+        buf[:, p + n : p + n + 1 + S] = out
+        done = done | ((slot <= acc) & (out == eos_token_id)).any(dim=1)
+        acc, all_done = torch.stack([acc, done.all().long()]).tolist()  # the loop's one host read
+        n, iters = n + acc + 1, iters + 1
+    # an all-done early exit leaves an uncommitted tail: greedy emits EOS forever
+    buf[:, p + n :] = eos_token_id
+    return buf[:, :total], n, iters
+
+
+def _stats(n: int, iters: int, max_new_tokens: int) -> dict:
+    # the last commit block may overshoot max_new_tokens: count emitted tokens only
+    n = min(n, max_new_tokens)
+    return {"iterations": iters, "generated": n, "tokens_per_iteration": round(n / max(iters, 1), 3)}
+
+
+def _lookup_greedy(model, prompt_ids, max_new_tokens, eos_token_id, ngram, spec_tokens):
+    S = int(spec_tokens)
+
+    def verify(logits, drafts, done):
+        out = _force_eos(torch.argmax(logits, dim=-1), done, eos_token_id)
+        ok = torch.cumprod((drafts == out[:, :S]).long(), dim=1)
+        return out, torch.where(done, S, ok.sum(dim=1))  # done rows place no constraint
+
+    return _lookup(model, prompt_ids, max_new_tokens, eos_token_id, ngram, S, lambda lg: torch.argmax(lg, dim=-1), verify)
+
+
+def lookup_decode(
+    model: LlamaLM,
+    prompt_ids,
+    max_new_tokens: int,
+    eos_token_id: int = 1,
+    ngram: int = 2,
+    spec_tokens: int = 7,
+    return_stats: bool = False,
+):
+    """Prompt-lookup speculative greedy generation: the ids of
+    ``greedy_decode``, (B, prompt + max_new_tokens), in fewer sequential
+    forwards when the stream repeats. Rows commit in lockstep at the minimum
+    acceptance over the batch, so this is a single-stream (B = 1) tool.
+    ``return_stats=True`` also returns {"iterations", "generated",
+    "tokens_per_iteration"}."""
+    ids, n, iters = _lookup_greedy(model, prompt_ids, max_new_tokens, eos_token_id, ngram, spec_tokens)
+    return (ids, _stats(n, iters, max_new_tokens)) if return_stats else ids
+
+
+def lookup_sample_decode(
+    model: LlamaLM,
+    prompt_ids,
+    max_new_tokens: int,
+    eos_token_id: int = 1,
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    ngram: int = 2,
+    spec_tokens: int = 7,
+    return_stats: bool = False,
+):
+    """Prompt-lookup speculative sampling, with every committed token drawn
+    from the filtered distribution of ``sample_decode`` (deterministic-draft
+    rejection sampling): draft j is accepted with probability p_j(d_j); at
+    the first rejection a replacement is drawn from p with the draft's mass
+    removed; when all S drafts pass, a bonus token from the next position's
+    p. Uniforms and Gumbel-max draws come from ``generator`` (on the model's
+    device; seed 0 when omitted), so sequences differ from
+    ``sample_decode``'s for one seed: equality is in distribution.
+    ``temperature=0`` is ``lookup_decode``. ``return_stats`` as there."""
+    if temperature == 0.0:
+        return lookup_decode(model, prompt_ids, max_new_tokens, eos_token_id, ngram, spec_tokens, return_stats)
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+    S = int(spec_tokens)
+
+    def gumbel_max(logp):
+        u = torch.rand(logp.shape, generator=generator, device=logp.device)
+        return torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)
+
+    def filtered(logits):
+        shape = logits.shape
+        return _filter_logits(logits.reshape(-1, shape[-1]) / temperature, top_k, top_p).reshape(shape)
+
+    def verify(logits, drafts, done):
+        b = drafts.shape[0]
+        probs = torch.softmax(filtered(logits), dim=-1)  # (b, 1 + S, V)
+        p_draft = torch.gather(probs[:, :S], -1, drafts[..., None])[..., 0]
+        u = torch.rand((b, S), generator=generator, device=logits.device)
+        ok = torch.cumprod((u < p_draft).long(), dim=1)  # leading accepts
+        acc_row = torch.where(done, S, ok.sum(dim=1))
+        # a fresh token at acc_row: the residual (the draft's mass removed) on a
+        # rejection, the full distribution at the bonus position acc_row == S
+        p_sel = probs[torch.arange(b, device=logits.device), acc_row]
+        drafts_ext = torch.cat([drafts, drafts[:, -1:]], dim=1)
+        draft_at = torch.gather(drafts_ext, 1, acc_row[:, None])
+        vocab = torch.arange(probs.shape[-1], device=logits.device)[None, :]
+        residual = torch.where((acc_row[:, None] < S) & (vocab == draft_at), 0.0, p_sel)
+        repl = gumbel_max(torch.log(residual))  # log(0) = -inf: a removed draft is never drawn
+        out = torch.where(torch.arange(1 + S, device=logits.device)[None, :] == acc_row[:, None], repl[:, None], drafts_ext)
+        return _force_eos(out, done, eos_token_id), acc_row
+
+    ids, n, iters = _lookup(
+        model, prompt_ids, max_new_tokens, eos_token_id, ngram, S, lambda lg: gumbel_max(filtered(lg)), verify
+    )
+    return (ids, _stats(n, iters, max_new_tokens)) if return_stats else ids

@@ -6,8 +6,9 @@ ids map to printable unicode (text/units.py), BPE-encode to LM tokens
 KV-cached decoders of models/llama.py, map back, and vocode through the
 duration-predicting CFM + HiFi-GAN decoder.
 
-The speculative decoders (``speculative=True`` in the JAX package) are not
-ported yet (ROADMAP.md queue 1 item 8); asking for them raises.
+Plain decoding is the default; ``speculative=True`` takes the prompt-lookup
+decoders (``lookup_decode`` when greedy, ``lookup_sample_decode`` when
+sampling), which give the same ids, or the same distribution.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.llama import LlamaLM, greedy_decode, sample_decode
+from ..models.llama import LlamaLM, greedy_decode, lookup_decode, lookup_sample_decode, sample_decode
 from ..text.units import unicode_to_units, units_to_unicode
 
 
@@ -42,17 +43,18 @@ def generate_unit_continuation(
     then +``num_special_tokens``. The sampled ids are cut at EOS, un-shifted,
     stripped of special ids and of ids past the tokenizer's vocabulary (the
     LM head may be wider), and mapped back through the token strings.
-    ``generator`` (on the model's device) drives the sampling.
+    ``generator`` (on the model's device) drives the sampling;
+    ``speculative`` picks the prompt-lookup decoders.
     """
-    if speculative:
-        raise NotImplementedError(
-            "speculative decoding (lookup_decode, lookup_sample_decode) is not ported yet: ROADMAP.md queue 1 item 8"
-        )
     bpe_ids = tokenizer.encode(units_to_unicode([int(u) for u in units]))
     if not bpe_ids:
         raise ValueError("prompt produced no BPE tokens (empty unit sequence?)")
     prompt = torch.tensor([[t + num_special_tokens for t in bpe_ids]], dtype=torch.long)
-    if temperature == 0.0:
+    if speculative and temperature == 0.0:
+        seq = lookup_decode(model, prompt, max_new_tokens, eos_token_id)
+    elif speculative:
+        seq = lookup_sample_decode(model, prompt, max_new_tokens, eos_token_id, generator, temperature, top_k, top_p)
+    elif temperature == 0.0:
         seq = greedy_decode(model, prompt, max_new_tokens, eos_token_id)
     else:
         seq = sample_decode(model, prompt, max_new_tokens, eos_token_id, generator, temperature, top_k, top_p)

@@ -258,7 +258,8 @@ def test_server_stream_returns_every_id_and_mulaw(port_decoder):
 # ---------------------------------------------------------------------------
 
 PORT = REPO / "speech_resynth_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "speech_resynth_tpu")
+# the JAX package and its stack, and libraries the card's machine does not have
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "speech_resynth_tpu", "pandas", "librosa", "torchaudio")
 
 
 def test_port_imports_nothing_of_jax():

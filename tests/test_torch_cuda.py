@@ -452,3 +452,118 @@ def test_codebook_kernel_at_the_resynthesis_shape_on_card(card, dtype):
     assert torch.equal(got[clear], want[clear])
     assert float((got == want).float().mean()) >= 0.999
     assert float(_score_given_up(x, centers, got, want).max()) <= SCORE_TOL
+
+
+# ---------------------------------------------------------------------------
+# the speech LM's speculative decoding, scoring, and the preprocessing front end
+# ---------------------------------------------------------------------------
+
+
+def teacher_forced_logits(lm, ids, p: int, block: int):
+    """The cache path's logits over ``ids`` (B, n) after a prefill of its
+    first ``p``: the prefill's last row, then one forward per ``block``
+    tokens. Row j predicts token p + j, as a decode step (``block`` 1) or a
+    verify block of lookup decoding (``block`` 1 + S) computes it."""
+    with torch.inference_mode():
+        cache = lm.init_cache(ids.shape[0], ids.shape[1])
+        logits, _ = lm(ids[:, :p], cache=cache, cache_index=0)
+        rows = [logits[:, -1:]]
+        for i in range(p, ids.shape[1] - 1, block):
+            chunk = ids[:, i : min(i + block, ids.shape[1] - 1)]
+            logits, _ = lm(chunk, cache=cache, cache_index=i)
+            rows.append(logits)
+    return torch.cat(rows, dim=1)
+
+
+def speculative_greedy_divergence(lm, prompt, max_new_tokens: int, eos_token_id: int = 1, spec_tokens: int = 7) -> dict:
+    """``lookup_decode`` against ``greedy_decode`` at B = 1: equal token for
+    token, or equal up to a first divergence at a near-tie, a position where
+    the plain step's top-2 logit gap is at most twice the largest |logit
+    difference| between verify blocks of 1 + S tokens and single steps over
+    the plain sequence up to that position (under bf16 the two shapes of
+    product may round differently). Returns the report; ``ok`` says whether
+    the rule holds."""
+    from speech_resynth_torch.models.llama import greedy_decode, lookup_decode
+
+    p = prompt.shape[1]
+    plain = greedy_decode(lm, prompt, max_new_tokens, eos_token_id)
+    spec, stats = lookup_decode(lm, prompt, max_new_tokens, eos_token_id, spec_tokens=spec_tokens, return_stats=True)
+    single = teacher_forced_logits(lm, plain, p, 1)[0].float()
+    verify = teacher_forced_logits(lm, plain, p, 1 + spec_tokens)[0].float()
+    differ = (plain[0, p:] != spec[0, p:]).nonzero()
+    first = int(differ[0]) if len(differ) else None
+    upto = max_new_tokens if first is None else first + 1
+    delta = float((single[:upto] - verify[:upto]).abs().max())
+    report = {"divergence": first, "max_logit_delta": delta, "stats": stats}
+    if first is not None:
+        top2 = single[first].topk(2).values
+        report["gap"] = float(top2[0] - top2[1])
+        report["near_tie"] = report["gap"] <= 2 * delta
+    report["ok"] = first is None or report["near_tie"]
+    return report
+
+
+@pytest.mark.cuda
+def test_speculative_greedy_equals_plain_greedy_on_card(card):
+    """bf16 LM on the card (d = 64): lookup_decode gives greedy_decode's ids,
+    except from a first divergence at a near-tie."""
+    from speech_resynth_torch.core.precision import BF16_INFERENCE
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.llama import LlamaConfig, LlamaLM, greedy_decode
+
+    cfg = LlamaConfig(vocab_size=300, hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2)
+    lm = LlamaLM(cfg, BF16_INFERENCE)
+    init_random_weights(lm, torch.Generator().manual_seed(1))
+    lm = lm.cuda().eval()
+    seed = torch.tensor([[5, 9, 17]], device="cuda")
+    prompt = greedy_decode(lm, seed, 24, eos_token_id=-1)  # a greedy continuation: its tail recurs, drafts verify
+    report = speculative_greedy_divergence(lm, prompt, 48, eos_token_id=-1)
+    assert report["ok"], report
+    assert report["stats"]["generated"] == 48
+
+
+@pytest.mark.cuda
+def test_write_scores_on_card_matches_cpu(card, tmp_path):
+    """The score file of an f32 LM on the card (K1 causal, d = 64, no mask)
+    against the CPU's: the same names in order, scores within 1e-4."""
+    import json
+
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.llama import LlamaConfig, LlamaLM
+    from speech_resynth_torch.pipeline.speechlm import write_scores
+
+    cfg = LlamaConfig(vocab_size=300, hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2)
+    lm = LlamaLM(cfg, FLOAT32)
+    init_random_weights(lm, torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(3)
+    items = {f"w{i:03d}": rng.integers(0, 290, int(rng.integers(3, 90))).tolist() for i in range(37)}
+    (tmp_path / "units.json").write_text(json.dumps(items))
+    write_scores(lm.eval(), tmp_path / "units.json", tmp_path / "cpu.txt", 16)
+    before = TA.flash_attention.launches
+    write_scores(lm.cuda(), tmp_path / "units.json", tmp_path / "card.txt", 16)
+    assert TA.flash_attention.launches == before + 3 * cfg.num_hidden_layers
+    ours = [line.split() for line in (tmp_path / "card.txt").read_text().splitlines()]
+    theirs = [line.split() for line in (tmp_path / "cpu.txt").read_text().splitlines()]
+    assert [n for n, _ in ours] == [n for n, _ in theirs] == list(items)
+    np.testing.assert_allclose([float(s) for _, s in ours], [float(s) for _, s in theirs], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orig", [44100, 24000, 8000])
+def test_resample_on_card_matches_cpu(card, orig):
+    from speech_resynth_torch.dsp.resample import resample
+
+    x = torch.from_numpy(np.random.default_rng(orig).standard_normal((3, orig * 2)).astype(np.float32) * 0.3)
+    torch.testing.assert_close(resample(x.cuda(), orig, 16000).cpu(), resample(x, orig, 16000), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_log_mel_on_card_matches_cpu(card):
+    """Broadband input (every mel bin within ~30 dB of its frame's loudest): atol 1e-4 in the log domain."""
+    from speech_resynth_torch.dsp.mel import log_mel_spectrogram, whisper_log_mel
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((0.3 * np.sin(np.arange(48000) * 0.05) + 0.1 * rng.standard_normal((4, 48000))).astype(np.float32))
+    for fn in (log_mel_spectrogram, whisper_log_mel):
+        torch.testing.assert_close(fn(x.cuda()).cpu(), fn(x), rtol=0, atol=1e-4)

@@ -1,18 +1,24 @@
-"""The speech-continuation path of the port against the JAX package.
+"""The speech-LM path of the port against the JAX package.
 
 Covers the unit <-> unicode mapping, the BPE tokenizer (files and merges
 shared with the JAX copy), the Llama LM (logits, the KV-cache path, greedy
-and sampled decoding, logit filtering, pseudo-log-prob scoring, weight
-conversion and the HF directory loader), ``continue_speech`` and the
-``generate_speechlm`` stage, all at tiny sizes with seeded weights.
+and sampled decoding, the speculative decoders, logit filtering,
+pseudo-log-prob scoring, weight conversion and the HF directory loader),
+``continue_speech`` (plain and speculative), the ``generate_speechlm``
+stage, and the LM stages ``encode``, ``tokenize``, ``tokenize_slm21``,
+``write_scores`` and ``evaluate``, all at tiny sizes with seeded weights.
 
 Tolerances: f32 on both sides (JAX at "highest" matmul precision), another
 summation order: LM logits atol 1e-4 (O(1) logits through two layers),
 scores 1e-5; waveforms as in tests/test_torch_duration.py (atol 2e-5).
-Token ids and units compare exactly.
+Token ids and units compare exactly. The speculative sampler is held to
+``sample_decode``'s distribution by total variation per position, at most
+max(3 x the noise floor of two ``sample_decode`` runs, 0.06), the JAX
+package's bound.
 """
 
 import json
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +31,13 @@ from speech_resynth_tpu.models import cfm as jax_cfm
 from speech_resynth_tpu.models import composite as jax_composite
 from speech_resynth_tpu.models import export as jax_export
 from speech_resynth_tpu.models import hifigan as jax_hifigan
+from speech_resynth_tpu.models import hubert as jax_hubert
 from speech_resynth_tpu.models import llama as JL
+from speech_resynth_tpu.models import speech_encoder as jax_se
 from speech_resynth_tpu.models.convert import stack_llama_layers
+from speech_resynth_tpu.pipeline import data as jax_data
 from speech_resynth_tpu.pipeline import generate as jax_generate
+from speech_resynth_tpu.pipeline import speechlm as jax_speechlm
 from speech_resynth_tpu.text import units as jax_units
 from speech_resynth_tpu.tokenizers.bpe import BpeTokenizer as JaxBpe
 from speech_resynth_torch.core.config import config_from_dict
@@ -38,7 +48,9 @@ from speech_resynth_torch.models import llama as TL
 from speech_resynth_torch.models import speech_encoder as torch_se
 from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
 from speech_resynth_torch.models.convert import llama_state_dict
+from speech_resynth_torch.pipeline import data as torch_data
 from speech_resynth_torch.pipeline import generate as torch_generate
+from speech_resynth_torch.pipeline import speechlm as torch_speechlm
 from speech_resynth_torch.pipeline.speechlm import load_lm_from_hf
 from speech_resynth_torch.pipeline.train_loops import generate_speechlm
 from speech_resynth_torch.text import units as torch_units
@@ -243,6 +255,117 @@ def test_sample_decode_greedy_limits_and_reproducibility(lm_pair):
     assert int(a.min()) >= 0 and int(a.max()) < LM_KW["vocab_size"]
 
 
+LOOKUP_PROMPTS = ([[2, 3, 4], [5, 6, 7]], [[8, 9, 10, 11, 12, 9, 10, 11]], [[2]])  # a repeated n-gram; shorter than the n-gram
+
+
+@pytest.mark.parametrize("prompt", LOOKUP_PROMPTS, ids=["two_rows", "repeated_ngram", "one_token"])
+def test_lookup_decode_equals_greedy_and_jax(lm_pair, prompt):
+    """The same ids as the port's greedy_decode and the JAX lookup_decode,
+    whatever the acceptance, n-gram and speculation depth."""
+    _, jmodel, variables, port = lm_pair
+    greedy = TL.greedy_decode(port, torch.tensor(prompt), 16)
+    for ngram, spec in ((2, 7), (3, 4), (2, 1)):
+        ours = TL.lookup_decode(port, torch.tensor(prompt), 16, ngram=ngram, spec_tokens=spec)
+        theirs = np.asarray(JL.lookup_decode(jmodel, variables, jnp.asarray(prompt), 16, 1, ngram=ngram, spec_tokens=spec))
+        assert torch.equal(ours, greedy), (ngram, spec)
+        np.testing.assert_array_equal(ours.numpy(), theirs, err_msg=f"ngram={ngram} spec={spec}")
+
+
+def test_lookup_decode_accepts_on_cyclic_continuation(lm_pair):
+    """A greedy continuation as the prompt: its tail recurs, drafts verify,
+    and more than one token commits per iteration, in as many iterations as
+    the JAX package takes."""
+    _, jmodel, variables, port = lm_pair
+    prompt = TL.greedy_decode(port, torch.tensor([[2, 3, 4]]), 24)
+    assert not (prompt == 1).any()
+    ours, stats = TL.lookup_decode(port, prompt, 16, return_stats=True)
+    theirs, jax_stats = JL.lookup_decode(jmodel, variables, jnp.asarray(prompt.numpy()), 16, 1, return_stats=True)
+    assert torch.equal(ours, TL.greedy_decode(port, prompt, 16))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    assert stats == jax_stats and stats["generated"] == 16
+    assert stats["tokens_per_iteration"] > 1.0, stats
+
+
+def test_lookup_sample_decode_greedy_limits_and_reproducibility(lm_pair):
+    """temperature 0 is lookup_decode; top-k 1 is greedy through the accept,
+    residual and bonus draws; one seed gives one sequence; EOS holds."""
+    _, _, _, port = lm_pair
+    for prompt in LOOKUP_PROMPTS[:2]:
+        prompt = torch.tensor(prompt)
+        greedy = TL.greedy_decode(port, prompt, 16)
+        assert torch.equal(TL.lookup_sample_decode(port, prompt, 16, temperature=0.0), greedy)
+        for ngram, spec in ((2, 7), (2, 3), (3, 2)):
+            got = TL.lookup_sample_decode(port, prompt, 16, generator=torch.Generator().manual_seed(3), temperature=0.7,
+                                          top_k=1, ngram=ngram, spec_tokens=spec)
+            assert torch.equal(got, greedy), (ngram, spec)
+    prompt = torch.tensor([[2, 3, 4]])
+    kw = dict(temperature=1.3, top_k=8, top_p=0.9)
+    a, stats = TL.lookup_sample_decode(port, prompt, 6, generator=torch.Generator().manual_seed(5), return_stats=True, **kw)
+    b = TL.lookup_sample_decode(port, prompt, 6, generator=torch.Generator().manual_seed(5), **kw)
+    assert torch.equal(a, b) and a.shape == (1, 9) and torch.equal(a[:, :3], prompt)
+    assert int(a.min()) >= 0 and int(a.max()) < LM_KW["vocab_size"] and stats["iterations"] >= 1
+    eos = int(a[0, 4])  # the second sampled token taken as EOS: from its first emission on, EOS
+    c = TL.lookup_sample_decode(port, prompt, 6, eos_token_id=eos, generator=torch.Generator().manual_seed(5), **kw)
+    hits = (c[0, 3:] == eos).nonzero()
+    assert len(hits) and (c[0, 3 + int(hits[0]) :] == eos).all()
+
+
+def _tv(a, b, t):
+    ha = np.bincount(a[:, t], minlength=LM_KW["vocab_size"]) / len(a)
+    hb = np.bincount(b[:, t], minlength=LM_KW["vocab_size"]) / len(b)
+    return 0.5 * float(np.abs(ha - hb).sum())
+
+
+TV_N, TV_T = 4096, 4
+TV_PROMPT = np.tile(np.array([[2, 3, 4, 2, 3]]), (TV_N, 1))
+TV_KW = dict(temperature=0.8, top_k=8, top_p=0.9)
+
+
+@pytest.fixture(scope="module")
+def speculative_samples(lm_pair):
+    """4 096 rows of lookup_sample_decode on one prompt: four new tokens each."""
+    port = lm_pair[3]
+    return TL.lookup_sample_decode(port, torch.from_numpy(TV_PROMPT), TV_T, 1, torch.Generator().manual_seed(2), ngram=2,
+                                   spec_tokens=3, **TV_KW).numpy()[:, TV_PROMPT.shape[1]:]
+
+
+@pytest.mark.parametrize("reference", ["port", "jax"])
+def test_lookup_sample_decode_matches_the_sample_decode_distribution(lm_pair, speculative_samples, reference):
+    """Per-position marginals of 4 096 speculative samples against
+    sample_decode's (the port's, or the JAX package's with the same
+    filtering): total variation within max(3 x the noise floor, 0.06)."""
+    _, jmodel, variables, port = lm_pair
+    P, T, prompt, kw, got = TV_PROMPT.shape[1], TV_T, TV_PROMPT, TV_KW, speculative_samples
+    if reference == "port":
+        ref, ctl = (TL.sample_decode(port, torch.from_numpy(prompt), T, 1, torch.Generator().manual_seed(s), **kw).numpy()[:, P:]
+                    for s in (0, 1))
+    else:
+        ref, ctl = (np.asarray(JL.sample_decode(jmodel, variables, jnp.asarray(prompt), T, 1, rng=jax.random.key(s), **kw))[:, P:]
+                    for s in (0, 1))
+    for t in range(T):
+        noise, dist = _tv(ref, ctl, t), _tv(ref, got, t)
+        assert dist <= max(3.0 * noise, 0.06), f"t={t}: TV(speculative, ancestral)={dist:.4f}, noise floor={noise:.4f}"
+
+
+def test_lookup_sample_residual_never_draws_the_removed_draft(lm_pair, monkeypatch):
+    """A rejected draft's mass is removed: log(0) stays -inf under the
+    Gumbel draw (never NaN), so the replacement is never the draft. Uniforms
+    of 1 - 2^-24 reject every draft and push every Gumbel term toward +inf."""
+    _, _, _, port = lm_pair
+    real_rand = torch.rand
+
+    def near_one(shape, generator=None, device=None):
+        return torch.full(tuple(shape), 1.0 - 2.0 ** -24, device=device)
+
+    prompt = torch.tensor([[8, 9, 10, 11, 12, 9, 10, 11]])
+    monkeypatch.setattr(torch, "rand", near_one)
+    out = TL.lookup_sample_decode(port, prompt, 8, eos_token_id=-1, top_k=3, ngram=2, spec_tokens=3)
+    monkeypatch.setattr(torch, "rand", real_rand)
+    # the first iteration's drafts, from the prompt and the first token
+    drafts = TL._propose_drafts(torch.cat([out, torch.zeros(1, 4, dtype=torch.long)], 1), 1, p=8, ngram=2, spec_tokens=3)
+    assert int(out[0, 9]) != int(drafts[0, 0]) and int(out.min()) >= 0 and int(out.max()) < LM_KW["vocab_size"]
+
+
 def test_sequence_pseudo_log_prob_equals_jax(lm_pair):
     _, _, _, port = lm_pair
     ids = _ids(5)
@@ -350,12 +473,6 @@ def test_generate_unit_continuation_equals_jax(lm_pair, tokenizers):
     assert ours.size > 0 and ours.min() >= 0 and ours.max() < N_UNITS
 
 
-def test_speculative_decoding_is_not_ported_yet(lm_pair, tokenizers):
-    _, _, _, port = lm_pair
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        torch_generate.generate_unit_continuation(PROMPT, tokenizers[2], port, speculative=True)
-
-
 def test_continue_speech_equals_jax(lm_pair, tokenizers, decoder_pair):
     """Greedy: the units equal the JAX package's; the waveform equals its
     decoder's on the same ODE noise."""
@@ -376,6 +493,44 @@ def test_continue_speech_equals_jax(lm_pair, tokenizers, decoder_pair):
     assert ours["waveform"].shape == (n,)
     np.testing.assert_allclose(ours["waveform"], want[:n], **WAV_TOL)
     assert np.abs(want[:n]).max() > 0.05
+
+
+def test_speculative_continuation_equals_jax(lm_pair, tokenizers):
+    """Greedy: the prompt-lookup route gives the JAX package's units, which
+    are plain decoding's; sampled: one seed gives one continuation."""
+    _, jmodel, variables, port = lm_pair
+    _, jax_tok, port_tok, _ = tokenizers
+    kw = dict(max_new_tokens=12, eos_token_id=1, num_special_tokens=2, temperature=0.0)
+    theirs = jax_generate.generate_unit_continuation(PROMPT, jax_tok, jmodel, variables, speculative=True, **kw)
+    ours = torch_generate.generate_unit_continuation(PROMPT, port_tok, port, speculative=True, **kw)
+    np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(ours, torch_generate.generate_unit_continuation(PROMPT, port_tok, port, **kw))
+    kw["temperature"] = 1.0
+    sampled = [torch_generate.generate_unit_continuation(PROMPT, port_tok, port, speculative=True,
+                                                         generator=torch.Generator().manual_seed(4), **kw) for _ in range(2)]
+    np.testing.assert_array_equal(sampled[0], sampled[1])
+    assert sampled[0].dtype == np.int32 and (sampled[0].size == 0 or sampled[0].max() < N_UNITS)
+
+
+def test_continue_speech_speculative_equals_jax(lm_pair, tokenizers, decoder_pair):
+    """continue_speech(speculative=True), greedy: the JAX package's units and
+    its decoder's waveform on the same ODE noise."""
+    _, jmodel, variables, port = lm_pair
+    jdec, tdec, _ = decoder_pair
+    kw = dict(max_new_tokens=10, temperature=0.0, speculative=True)
+    jax_units_out = np.concatenate([PROMPT, jax_generate.generate_unit_continuation(PROMPT, tokenizers[1], jmodel, variables, **kw)])
+    ids = np.asarray(jax_units_out, np.int64)[None] + 1
+    bound = tdec._duration_bound(torch.from_numpy(ids))
+    x0 = np.random.default_rng(4).standard_normal((1, bound, CFM_KW["dim_in"])).astype(np.float32)
+    ours = torch_generate.continue_speech(PROMPT, tokenizers[2], port, tdec, x0=torch.from_numpy(x0), **kw)
+    np.testing.assert_array_equal(ours["units"], jax_units_out)
+    mel, mask = jdec.model.apply(
+        jdec.model_variables, jnp.asarray(ids), dt=0.0625, truncation_value=1.0, x0=jnp.asarray(x0), max_frames=bound, method="sample"
+    )
+    want = np.asarray(jdec.vocoder.apply(jdec.vocoder_variables, mel))[0]
+    n = int(jdec.vocoder.config.waveform_lengths(int(np.asarray(mask).sum())))
+    assert ours["waveform"].shape == (n,)
+    np.testing.assert_allclose(ours["waveform"], want[:n], **WAV_TOL)
 
 
 HUBERT_KW = dict(
@@ -431,3 +586,183 @@ def test_lm_loader_defaults_to_the_card(lm_pair, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_lm_from_hf(tmp_path / "hf")
+
+
+# ---------------------------------------------------------------------------
+# LM stages: encode, tokenize, tokenize_slm21, write_scores, evaluate
+# ---------------------------------------------------------------------------
+
+
+def _named_units(seed, n):
+    rng = np.random.default_rng(seed)
+    return {f"item{i:02d}": rng.integers(0, 30, int(rng.integers(1, 70))).tolist() for i in range(n)}
+
+
+def test_load_named_units_from_json_equals_jax(tmp_path):
+    path = tmp_path / "units.json"
+    path.write_text(json.dumps(_named_units(20, 11)))
+    ours = list(torch_data.load_named_units_from_json(str(path), 4, 2))
+    theirs = list(jax_data.load_named_units_from_json(str(path), 4, 2))
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        assert a["names"] == b["names"]
+        assert a["input_ids"].dtype == b["input_ids"].dtype and a["input_ids"].shape[1] % 32 == 0
+        np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
+
+
+def test_write_scores_equals_jax(lm_pair, tmp_path):
+    """Names in the JSON's order, scores within 1e-5, one forward per batch
+    without an attention mask (so K1 on the card, never a masked path)."""
+    _, jmodel, variables, port = lm_pair
+    path = tmp_path / "units.json"
+    items = {k: [t % 30 for t in v] for k, v in _named_units(21, 7).items()}
+    path.write_text(json.dumps(items))
+    jax_speechlm.write_scores(jmodel, variables, str(path), tmp_path / "jax.txt", 3, 2)
+    torch_speechlm.write_scores(port, str(path), tmp_path / "port.txt", 3, 2)
+    theirs = [line.split() for line in (tmp_path / "jax.txt").read_text().splitlines()]
+    ours = [line.split() for line in (tmp_path / "port.txt").read_text().splitlines()]
+    assert [n for n, _ in ours] == [n for n, _ in theirs] == list(items)
+    np.testing.assert_allclose([float(s) for _, s in ours], [float(s) for _, s in theirs], rtol=0, atol=1e-5)
+
+
+STAGE_HUBERT = "stage-hubert"
+
+
+def _stage_config(root, data, models):
+    return {
+        "dataset": {
+            "wav_dir_train": str(data / "librilight"), "ext_audio": ".wav",
+            "unicode_train": str(root / "unicode/train"), "train_file": str(root / "unit/train.txt"),
+            "swuggy_dev_file": str(root / "unit/lexical/dev.json"), "sblimp_dev_file": str(root / "unit/syntactic/dev.json"),
+            "swuggy_test_file": str(root / "unit/lexical/test.json"), "sblimp_test_file": str(root / "unit/syntactic/test.json"),
+            "swuggy_dir": str(data / "slm21/lexical"), "sblimp_dir": str(data / "slm21/syntactic"),
+            "result_dir": str(root / "results"),
+        },
+        "dataloader": {"batch_size_per_device": 3},
+        "model": {"vocab_size": 32, "pad_token_id": 0, "bos_token_id": None, "eos_token_id": 1},
+        "s2u": {"dense_model_name": STAGE_HUBERT, "quantizer_model_name": "kmeans", "vocab_size": N_UNITS,
+                "tokenizer_path": str(root / "tokenizer.json")},
+    }
+
+
+def _voiced(rng, seconds):
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    f0 = rng.uniform(100, 250) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(1, 4) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+    return (0.3 * np.sin(phase) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def lm_stages(lm_pair, tmp_path_factory):
+    """A tiny HuBERT (an HF-format checkpoint) and 20 centers registered in both
+    packages' DENSE_MODELS and read by both ``by_name`` from one directory; a
+    Libri-Light-shaped tree (and one unreadable file) and an sLM21-shaped
+    tree with gold tables; then each package's encode, tokenize,
+    tokenize_slm21 and evaluate into its own directory. Both encoders run in
+    f32 (``_make_encoder`` asks for the bf16 default otherwise), and the
+    units of every file are clear of ties (top-2 score gap > 1e-3)."""
+    from safetensors.torch import save_file
+
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_tpu.core.config import config_from_dict as jax_config
+
+    data = tmp_path_factory.mktemp("lm_stage_data")
+    jcfg = jax_hubert.HubertConfig(**HUBERT_KW)
+    # an HF HubertModel checkpoint: the port's keys are HF's, but for the
+    # positional conv, which HF keeps weight-normed (norm over all but the taps)
+    tower = torch_hubert.HubertEncoder(torch_hubert.HubertConfig(**HUBERT_KW), FLOAT32)
+    init_random_weights(tower, torch.Generator().manual_seed(33))
+    sd = dict(tower.state_dict())
+    w = sd.pop("encoder.pos_conv_embed.conv.weight")
+    sd["encoder.pos_conv_embed.conv.weight_v"] = w
+    sd["encoder.pos_conv_embed.conv.weight_g"] = torch.sqrt(torch.sum(w * w, dim=(0, 1), keepdim=True))
+    save_file({k: v.contiguous() for k, v in sd.items()}, str(data / f"{STAGE_HUBERT}.safetensors"))
+    centers = np.random.default_rng(30).standard_normal((N_UNITS, jcfg.hidden_size)).astype(np.float32) * 2.0
+    np.savez(data / f"{STAGE_HUBERT}-kmeans-{N_UNITS}.npz", centers=centers)
+    rng = np.random.default_rng(31)
+    wavs = {}
+    for spk, chap, utt in (("12", "1", "a"), ("12", "2", "b"), ("3", "1", "c"), ("5", "7", "d"), ("7", "1", "e")):
+        wavs[f"librilight/small/{spk}/{chap}/{utt}.wav"] = _voiced(rng, rng.uniform(0.8, 2.0))
+    gold = {}
+    for task, by, cats, secs in (("lexical", "frequency", ("high", "low", "oov"), (0.4, 0.9)), ("syntactic", "type", ("agreement", "anaphor"), (1.0, 2.0))):
+        rows = []
+        for pair in range(3):
+            for correct in (1, 0):
+                name = f"{task[:3]}{pair}{'ab'[correct]}"
+                wavs[f"slm21/{task}/test/{name}.wav"] = _voiced(rng, rng.uniform(*secs))
+                rows.append(f"{pair},{name}.wav,{correct},{cats[pair % len(cats)]},test")
+        gold[task] = f"id,filename,correct,{by},subset\n" + "\n".join(rows) + "\n"
+    for rel, w in wavs.items():
+        audio_io.write(data / rel, w, 16000)
+    (data / "librilight/small/9/1").mkdir(parents=True)
+    (data / "librilight/small/9/1/broken.wav").write_bytes(b"not a wav file")
+    for task, text in gold.items():
+        (data / "slm21" / task / "gold.csv").write_text(text)
+
+    _, jmodel, variables, port = lm_pair
+    jax_root, port_root = data / "jax", data / "port"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SPEECH_RESYNTH_MODELS", str(data))
+        mp.setitem(jax_se.DENSE_MODELS, STAGE_HUBERT, {"config": jcfg, "output_layer": 2})
+        mp.setitem(torch_se.DENSE_MODELS, STAGE_HUBERT, {"config": torch_hubert.HubertConfig(**HUBERT_KW), "output_layer": 2})
+        spec = (STAGE_HUBERT, "kmeans", N_UNITS)
+        mp.setattr(jax_speechlm, "_make_encoder", lambda c: jax_se.SpeechEncoder.by_name(*spec, deduplicate=True, policy=JAX_FLOAT32))
+        mp.setattr(torch_speechlm, "_make_encoder",
+                   lambda c, device=None: torch_se.SpeechEncoder.by_name(*spec, deduplicate=True, policy=FLOAT32, device=device))
+        enc = torch_speechlm._make_encoder(config_from_dict(_stage_config(port_root, data, None)), device="cpu")
+        for w in wavs.values():
+            feats = enc.encoder(torch.from_numpy(w)[None], output_layer=2)[0]
+            score = feats @ enc.quantizer.centers.T - enc.quantizer.centers.pow(2).sum(-1) / 2
+            top2 = score.topk(2, dim=-1).values
+            assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-3
+        jconf, pconf = jax_config(_stage_config(jax_root, data, None)), config_from_dict(_stage_config(port_root, data, None))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            jax_speechlm.encode(jconf, "1-9")
+            torch_speechlm.encode(pconf, "1-9", device="cpu")
+            jax_speechlm.tokenize(jconf)
+            torch_speechlm.tokenize(pconf)
+            jax_speechlm.tokenize_slm21(jconf)
+            torch_speechlm.tokenize_slm21(pconf, device="cpu")
+            jax_result = jax_speechlm.evaluate(jconf, jmodel, variables)
+            port_result = torch_speechlm.evaluate(pconf, port)
+    return jax_root, port_root, jax_result, port_result
+
+
+def test_encode_stage_equals_jax(lm_stages):
+    """``encode`` (through ``_encode_paths``): one unicode line per readable
+    file, in path order, the unreadable one skipped."""
+    jax_root, port_root, _, _ = lm_stages
+    ours = (port_root / "unicode/train1-9").read_text()
+    assert ours == (jax_root / "unicode/train1-9").read_text()
+    assert len(ours.splitlines()) == 5 and all(ours.splitlines())
+
+
+def test_tokenize_stage_equals_jax(lm_stages):
+    jax_root, port_root, _, _ = lm_stages
+    assert json.loads((port_root / "tokenizer.json").read_text())["model"] == json.loads((jax_root / "tokenizer.json").read_text())["model"]
+    ours = (port_root / "unit/train.txt").read_text()
+    assert ours == (jax_root / "unit/train.txt").read_text() and len(ours.splitlines()) == 5
+
+
+def test_tokenize_slm21_stage_equals_jax(lm_stages):
+    jax_root, port_root, _, _ = lm_stages
+    for rel in ("unit/lexical/test.json", "unit/syntactic/test.json", "unit/lexical/dev.json", "unit/syntactic/dev.json"):
+        assert json.loads((port_root / rel).read_text()) == json.loads((jax_root / rel).read_text()), rel
+    assert len(json.loads((port_root / "unit/lexical/test.json").read_text())) == 6
+
+
+def test_evaluate_stage_equals_jax(lm_stages):
+    """Score files (names in order, scores within 1e-5), the pair tables and
+    the four aggregate numbers, which the port returns as a dict."""
+    jax_root, port_root, jax_result, port_result = lm_stages
+    for task in ("lexical", "syntactic"):
+        ours = [line.split() for line in (port_root / f"results/{task}/test.txt").read_text().splitlines()]
+        theirs = [line.split() for line in (jax_root / f"results/{task}/test.txt").read_text().splitlines()]
+        assert [n for n, _ in ours] == [n for n, _ in theirs] and len(ours) == 6
+        np.testing.assert_allclose([float(s) for _, s in ours], [float(s) for _, s in theirs], rtol=0, atol=1e-5)
+    for name in ("score_lexical_test_by_frequency.csv", "score_syntactic_test_by_type.csv"):
+        assert (port_root / "results/scores" / name).read_text() == (jax_root / "results/scores" / name).read_text()
+    assert list(port_result) == list(jax_result.index)
+    np.testing.assert_allclose(list(port_result.values()), jax_result[0].to_numpy(), rtol=0, atol=0)
+    assert (port_root / "results/scores/score.csv").read_text() == (jax_root / "results/scores/score.csv").read_text()
