@@ -49,9 +49,21 @@
    memory of a 40-s batch of 8 resampled from 44.1 kHz;
 12. fits k-means (k = 100, 50 000 x 768, 10 Lloyd steps) on the card and on
    the CPU from the same centers;
-13. holds and times K1 and K4 at the shapes of those paths (sLM21 tokenize and
-   scoring, preprocess tokenize), profiles device time by kernel group, and
-   prints one ``{"kernels": [...]}`` line (launches of every path above, the
+13. trains at the full widths of configs/resynth/mhubert-expresso-2000.yaml:
+   K1 through its autograd Function at the CFM step's shape (2 700, 2, 100,
+   128), its output and dq, dk, dv against the plain version's, timed beside
+   SDPA forward + backward; the CFM trainer on a fixed 2 700 x 100 batch (20
+   steps, then remat), the HiFi-GAN trainer at 64 x 16 080 samples (10 steps,
+   no K2 or K3 launch), each also one small f32 step against the CPU; then
+   ``train_flow_matching`` and ``train_hifigan`` on synthetic corpora
+   (checkpoints, resume, validation through K2), a HiFi-GAN run killed with
+   SIGKILL after a mid-epoch checkpoint and resumed against one run straight
+   through (equal generator hashes), and the exported pair synthesizing
+   through ``load_pretrained``;
+14. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
+   tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
+   trained pair's decoder), profiles device time by kernel group, prints the
+   script's wall time and one ``{"kernels": [...]}`` line (launches of every path above, the
    shape of every counted launch, and the times of each kernel at every
    timed shape) and, last, the ``{"ok": true, ...}`` line.
 
@@ -1821,6 +1833,406 @@ def kmeans_fit_phase(torch, np, C) -> dict:
     return record
 
 
+# configs/resynth/mhubert-expresso-2000.yaml: the trainers' batches and widths
+CFM_TRAIN = dict(
+    batch_size=2700, frames_per_seg=100, warmup_steps=1000, lr=0.001, lr_min=0.0001, max_norm=0.1, dt=0.0625,
+    truncation_value=1.0, dense_model_name=ENCODER[0], quantizer_model_name=ENCODER[1], vocab_size=ENCODER[2], dim_in=80,
+    dim_cond_emb=768, hidden_size=256, depth=4, heads=2, intermediate_size=896, ff_dropout=0.0,
+    use_unet_skip_connection=False, conv_pos_embed_kernel_size=31, conv_pos_embed_groups=256, attn_dropout=0.0,
+    mean=-5.8843, std=2.2615, predict_duration=False,
+)
+GAN_TRAIN = dict(
+    batch_size=64, segment_size=16080, learning_rate=0.0002, adam_b1=0.8, adam_b2=0.99, lr_decay=0.999, seed=1234,
+    upsample_rates=[5, 4, 4, 2, 2], upsample_kernel_sizes=[10, 9, 8, 4, 4], n_fft=400, hop_size=320, stdout_interval=1000,
+)
+GAN_FRAMES = (GAN_TRAIN["segment_size"] - GAN_TRAIN["n_fft"]) // GAN_TRAIN["hop_size"] + 1  # 50
+CFM_STEPS, GAN_STEPS = 20, 10
+TRAIN_SEED = 5  # the step seed of the fixed-batch runs: the same noise and flow times every step
+LOOP_UTTS, LOOP_WAVS, LOOP_DEV = 5400, 128, 20  # two CFM steps and two GAN steps per epoch; three dev batches
+EXPORT_BATCH, EXPORT_UNITS = 4, 200  # the exported pair's synthesis batch
+
+
+def k1_train_phase(torch, F, A) -> list:
+    """K1 through its autograd Function at the CFM step's shape (2 700, 2,
+    100, 128), bf16 and f32, every key valid and ragged: the output against
+    attention_reference (ATT_TOL, scaled for outputs above 1) and dq, dk, dv
+    against autograd through attention_reference on the card (the Function's
+    backward is that computation: tolerance ATT_TOL of max |grad|). Times:
+    the forward records of ``attention_shape`` (K1, plain, SDPA with the same
+    float mask), and forward + backward of the Function, the plain version
+    and SDPA (the library yardstick for a training step's attention)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B, H, N, D = CFM_TRAIN["batch_size"], 2, CFM_TRAIN["frames_per_seg"], 128
+    records, checks = [], []
+    for ragged in (False, True):
+        lengths = torch.full((B,), N, device=dev)
+        if ragged:
+            lengths = torch.randint(40, N + 1, (B,), generator=gen, device=dev)
+        mask = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+        for name in DTYPES:
+            dtype = getattr(torch, name)
+            q, k, v, g = (torch.randn(B, H, N, D, generator=gen, device=dev).to(dtype) for _ in range(4))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = A.flash_attention.launches
+            out = A.dot_product_attention(*leaves, mask=mask)
+            if A.flash_attention.launches != before + 1 or out.grad_fn is None:
+                fail(f"K1 at the training shape did not launch once with a gradient ({name}, ragged={ragged})")
+            out.backward(g)
+            plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            want = A.attention_reference(*plain, mask)
+            want.backward(g)
+            torch.cuda.synchronize()
+            fwd_err, fwd_tol = max_err(torch, out.detach(), want.detach()), ATT_TOL[name] * max(1.0, float(want.detach().float().abs().max()))
+            grad_err = max(max_err(torch, a.grad, b.grad) for a, b in zip(leaves, plain))
+            grad_tol = ATT_TOL[name] * max(float(b.grad.float().abs().max()) for b in plain)
+            check = {"dtype": name, "ragged": ragged, "fwd_max_abs_err": fwd_err, "fwd_tol": fwd_tol,
+                     "grad_max_abs_err": grad_err, "grad_tol": grad_tol}
+            checks.append(check)
+            if not torch.isfinite(out.float()).all() or fwd_err > fwd_tol or grad_err > grad_tol:
+                fail(f"K1's gradient at the training shape: {check}")
+            del leaves, plain, out, want
+        label = "cfm training" + (" (ragged)" if ragged else "")
+        record = attention_shape(torch, F, A, gen, label, B, H, N, D, 40 if ragged else N, N)
+        q, k, v, g = (torch.randn(B, H, N, D, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+        qr, kr, vr = (t.requires_grad_(True) for t in (q, k, v))
+        float_mask = torch.zeros(B, 1, 1, N, device=dev, dtype=torch.bfloat16).masked_fill(~mask[:, None, None, :], A.NEG_INF)
+        record.update(
+            fwd_bwd_ms=time_ms(torch, lambda: torch.autograd.grad(A.FlashAttention.apply(qr, kr, vr, mask, False), (qr, kr, vr), g), 10),
+            plain_fwd_bwd_ms=time_ms(torch, lambda: torch.autograd.grad(A.attention_reference(qr, kr, vr, mask), (qr, kr, vr), g), 10),
+            library_fwd_bwd_ms=time_ms(
+                torch, lambda: torch.autograd.grad(F.scaled_dot_product_attention(qr, kr, vr, attn_mask=float_mask), (qr, kr, vr), g), 10
+            ),
+        )
+        print(json.dumps({"phase": "k1_train_fwd_bwd", "path": label, **{k: record[k] for k in (
+            "ms", "graph_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "library_ms", "library_graph_ms", "bound_ms")}}))
+        records.append(record)
+        del q, k, v, g, qr, kr, vr
+    print(json.dumps({"phase": "k1_train_grad_checks", "cases": checks}))
+    torch.cuda.empty_cache()
+    return records
+
+
+def cfm_train_batch(torch, dev: str = "cuda"):
+    """A fixed (2 700, 100) unit batch and its mels, three rows in four full
+    (crops of long utterances), the rest padded from 40 frames up."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    B, N = CFM_TRAIN["batch_size"], CFM_TRAIN["frames_per_seg"]
+    lengths = torch.randint(40, N + 1, (B,), generator=gen, device=dev)
+    lengths[: 3 * B // 4] = N
+    pad = torch.arange(N, device=dev)[None, :] >= lengths[:, None]
+    ids = torch.randint(1, CFM_TRAIN["vocab_size"] + 1, (B, N), generator=gen, device=dev).masked_fill(pad, 0)
+    mels = (torch.randn(B, N, 80, generator=gen, device=dev) * 2 - 5).masked_fill(pad[..., None], -100.0)
+    return {"input_ids": ids, "spectrogram_labels": mels}
+
+
+def train_cfm_phase(torch, np, A) -> dict:
+    """The full-width CFM trainer (``make_trainer``, DEFAULT policy: f32
+    parameters, bf16 compute) with a seeded random 2 001 x 768 table frozen
+    in, on one fixed batch of 2 700 x 100 frames and one step seed: 20 steps
+    (finite, falling loss; 4 K1 launches a step), then 3 with remat (the same
+    first loss within 1e-3, 8 launches a step, less peak memory); ms per
+    step, segments per second and peak memory of each. Then one small-width
+    f32 step on the card against the CPU, without and with remat."""
+    from speech_resynth_torch.core.precision import DEFAULT
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.train.cfm import CFMTrainerConfig, make_trainer
+    from test_torch_cuda import cfm_step_card_vs_cpu
+
+    batch = cfm_train_batch(torch)
+    table = np.random.default_rng(42).standard_normal((CFM_TRAIN["vocab_size"] + 1, 768)).astype(np.float32)
+    table[0] = 0
+    runs, launches = {}, 0
+    for remat, steps in ((False, CFM_STEPS), (True, 3)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, state, step = make_trainer(CFMConfig(vocab_size=CFM_TRAIN["vocab_size"], remat=remat), CFMTrainerConfig(),
+                                          1000, table, DEFAULT, "cuda")
+        A.flash_attention.launches = 0
+        losses = []
+        for i in range(steps):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = step(state, batch, TRAIN_SEED)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        n = A.flash_attention.launches
+        launches += n
+        runs[remat] = {
+            "remat": remat, "steps": steps, "ms_per_step": ms, "segments_per_s": CFM_TRAIN["batch_size"] / ms * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30, "k1_launches": n,
+            "losses": [float(x) for x in losses], "grad_norm": float(metrics["grad_norm"]),
+        }
+        print(json.dumps({"phase": "train_cfm_step", **runs[remat]}))
+        if not remat:  # where a step's device time goes (after the count: these launches are not the path's)
+            profile_phase(torch, "train_cfm_step", lambda: step(state, batch, TRAIN_SEED), 1)
+        del model, state, step, metrics
+        if n != steps * 4 * (2 if remat else 1):
+            fail(f"CFM training launched K1 {n} times in {steps} steps (remat={remat})")
+    plain, remat = runs[False], runs[True]
+    losses = plain["losses"]
+    if not all(math.isfinite(x) for x in losses) or np.mean(losses[-5:]) >= np.mean(losses[:5]):
+        fail(f"CFM training's loss is not finite and falling: {losses}")
+    rel = abs(remat["losses"][0] - losses[0]) / abs(losses[0])
+    if rel > 1e-3 or remat["peak_memory_gb"] >= plain["peak_memory_gb"]:
+        fail(f"remat: first loss {remat['losses'][0]} against {losses[0]}, peak {remat['peak_memory_gb']} GB against {plain['peak_memory_gb']}")
+    small = [cfm_step_card_vs_cpu(r) for r in (False, True)]
+    print(json.dumps({"phase": "train_cfm_card_vs_cpu", "cases": small}))
+    torch.cuda.empty_cache()
+    return {"launches": {"flash_attention": launches}, "runs": runs, "remat_loss_rel_diff": rel, "card_vs_cpu": small}
+
+
+def gan_train_batch(torch, np, dev: str = "cuda") -> dict:
+    """64 speech-like 16 080-sample segments and their 50-frame log-mels."""
+    from speech_resynth_torch.dsp.mel import log_mel_spectrogram
+
+    waves = speechlike_waves(np, np.random.default_rng(43), GAN_TRAIN["batch_size"], seconds=(1.1, 1.1))
+    wav = torch.from_numpy(np.stack([w[: GAN_TRAIN["segment_size"]] for w in waves])).to(dev)
+    mel = log_mel_spectrogram(wav)
+    if mel.shape[1] != GAN_FRAMES:
+        fail(f"a {wav.shape[1]}-sample segment gave {mel.shape[1]} mel frames, not {GAN_FRAMES}")
+    return {"mel": mel, "wav": wav, "mel_mask": torch.ones(mel.shape[:2], dtype=torch.bool, device=dev)}
+
+
+def train_hifigan_phase(torch, np, M) -> dict:
+    """The full-width generator, MPD and MSD (``make_gan_trainer``, DEFAULT
+    policy) at the config's batch of 64 x 16 080 samples (50 frames): 10
+    steps, finite losses, no K2 or K3 launch (the generator records a
+    gradient, so it runs the plain conv chain); ms per step, peak memory.
+    Then one small-width f32 step on the card against the CPU."""
+    from speech_resynth_torch.core.precision import DEFAULT
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.train.hifigan import HifiGanTrainerConfig, make_gan_trainer
+    from test_torch_cuda import gan_step_card_vs_cpu
+
+    batch = gan_train_batch(torch, np)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, state, step = make_gan_trainer(HifiGanConfig(), HifiGanTrainerConfig(), DEFAULT, "cuda")
+    M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    history = []
+    for i in range(GAN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (GAN_STEPS - 1)
+    launches = {"mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    record = {
+        "phase": "train_hifigan_step", "steps": GAN_STEPS, "batch": list(batch["wav"].shape), "ms_per_step": ms,
+        "segments_per_s": GAN_TRAIN["batch_size"] / ms * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "metrics": [{k: float(v) for k, v in m.items()} for m in history],
+    }
+    print(json.dumps(record))
+    profile_phase(torch, "train_hifigan_step", lambda: step(state, batch), 1)
+    del state, step, history, metrics
+    if any(launches.values()) or not all(math.isfinite(v) for m in record["metrics"] for v in m.values()):
+        fail(f"HiFi-GAN training: launches {launches}, metrics {record['metrics'][-1]}")
+    small = gan_step_card_vs_cpu()
+    print(json.dumps({"phase": "train_hifigan_card_vs_cpu", **small}))
+    torch.cuda.empty_cache()
+    return {"launches": launches, "record": record, "card_vs_cpu": small}
+
+
+def write_train_corpora(torch, np, audio_io, root: Path) -> dict:
+    """A CFM corpus (LOOP_UTTS utterances of 100-140 units and mels, one unit
+    JSON) and a HiFi-GAN corpus (LOOP_WAVS speech-like wavs of 1.2-2 s with
+    their log-mels from the card; the first LOOP_DEV are also the dev list)."""
+    from speech_resynth_torch.dsp.mel import log_mel_spectrogram
+
+    rng = np.random.default_rng(44)
+    spec = root / "spectrogram"
+    spec.mkdir(parents=True)
+    units = {}
+    for i in range(LOOP_UTTS):
+        n = int(rng.integers(100, 141))
+        units[f"u{i}"] = {"units": rng.integers(0, CFM_TRAIN["vocab_size"], n).tolist(), "durations": [1] * n, "transcript": ""}
+        np.save(spec / f"u{i}.npy", (rng.standard_normal((n, 80)) * 2 - 5).astype(np.float32))
+    (root / "train.json").write_text(json.dumps(units))
+    wav_dir = root / "wav"
+    wav_dir.mkdir()
+    names = []
+    for i, wave in enumerate(speechlike_waves(np, rng, LOOP_WAVS, seconds=(1.2, 2.0))):
+        audio_io.write(wav_dir / f"w{i}.wav", wave, SAMPLE_RATE)
+        np.save(spec / f"w{i}.npy", log_mel_spectrogram(torch.from_numpy(wave).cuda()).cpu().numpy())
+        names.append(f"w{i}")
+    (root / "wavs.txt").write_text("\n".join(names) + "\n")
+    (root / "dev.txt").write_text("\n".join(names[:LOOP_DEV]) + "\n")
+    return {"spec": spec, "wav": wav_dir}
+
+
+def loop_config(root: Path, train_file: str, cfm_epochs: int = 2, **gan) -> dict:
+    """The loops' config: the YAML's trainer values, the corpora under ``root``,
+    2 epochs of each trainer, a summary every step, a CFM checkpoint every
+    epoch, a HiFi-GAN checkpoint and validation every 2 steps (``gan``
+    overrides)."""
+    return {
+        "common": {"seed": 0},
+        "dataset": {"wav_dir": str(root / "wav"), "spectrogram_dir": str(root / "spectrogram"), "ext_audio": ".wav",
+                    "train_file": str(root / train_file), "dev_file": str(root / "dev.txt")},
+        "flow_matching": {**CFM_TRAIN, "path": str(root / "flow_matching"), "epoch": cfm_epochs, "summary_interval": 1,
+                          "save_interval_epoch": 1},
+        "hifigan": {**GAN_TRAIN, "path": str(root / "hifigan"), "training_epochs": 2, "summary_interval": 1,
+                    "checkpoint_interval": 2, "validation_interval": 2, **gan},
+    }
+
+
+# One HiFi-GAN run in a process of its own, deterministic: straight through,
+# stopped (to be killed) right after the checkpoint at ``stop_at``, or resumed.
+GAN_RUN = """
+import json, sys, time
+import torch
+torch.use_deterministic_algorithms(True)
+from speech_resynth_torch.core.config import config_from_dict
+from speech_resynth_torch.pipeline import train_loops
+cfg, stop_at = config_from_dict(json.loads(sys.argv[1])), int(sys.argv[2])
+class StopAfterSave(train_loops.CheckpointManager):
+    def save(self, step, state, force=False):
+        saved = super().save(step, state, force)
+        if saved and step == stop_at:
+            print("checkpoint", step, flush=True)
+            time.sleep(3600)
+        return saved
+train_loops.CheckpointManager = StopAfterSave
+print(json.dumps(train_loops.train_hifigan(cfg)), flush=True)
+"""
+
+
+def generator_hash(hashlib, torch, path: Path) -> str:
+    """sha256 over the exported generator's tensors in key order (16 hex digits)."""
+    sd = torch.load(path / "pytorch_model.bin", map_location="cpu", weights_only=True)
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kill_resume_check(torch, root: Path, config: dict) -> dict:
+    """``train_hifigan`` at the corpus's 2 steps an epoch for 2 epochs with a
+    checkpoint every 3 steps, in processes of their own under
+    ``torch.use_deterministic_algorithms(True)`` (CUBLAS_WORKSPACE_CONFIG set
+    before CUDA starts): once straight through; once killed with SIGKILL
+    right after the mid-epoch checkpoint at step 3, then resumed. The two
+    exported generators must be equal bit for bit."""
+    import hashlib
+    import os
+    import signal
+    import threading
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    repo = str(Path(__file__).resolve().parent)
+    out = {}
+
+    def run(name, stop_at=-1):
+        cfg = {**config, "hifigan": {**config["hifigan"], "path": str(root / name)}}
+        return subprocess.Popen([sys.executable, "-c", GAN_RUN, json.dumps(cfg), str(stop_at)], cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    straight = run("straight")
+    so, se = straight.communicate(timeout=600)
+    if straight.returncode:
+        fail(f"the straight HiFi-GAN run failed: {se[-3000:]}")
+    out["straight"] = json.loads(so.strip().splitlines()[-1])
+    killed = run("resumed", stop_at=3)
+    watchdog = threading.Timer(600, killed.kill)  # a run that never reaches its checkpoint
+    watchdog.start()
+    try:
+        line = killed.stdout.readline()
+        if line.split() != ["checkpoint", "3"]:
+            killed.kill()
+            fail(f"the run to kill did not reach its checkpoint: {line!r} {killed.stderr.read()[-3000:]}")
+        killed.send_signal(signal.SIGKILL)
+    finally:
+        watchdog.cancel()
+        killed.wait(timeout=60)
+    steps = sorted(int(p.name) for p in (root / "resumed" / "ckpt").iterdir() if p.name.isdigit())
+    resumed = run("resumed")
+    so, se = resumed.communicate(timeout=600)
+    if resumed.returncode:
+        fail(f"the resumed HiFi-GAN run failed: {se[-3000:]}")
+    out["resumed"] = json.loads(so.strip().splitlines()[-1])
+    hashes = {k: generator_hash(hashlib, torch, root / k) for k in ("straight", "resumed")}
+    record = {"phase": "train_kill_resume", "killed_with": "SIGKILL", "killed_at_checkpoint": 3, "checkpoints_when_killed": steps,
+              "steps": {k: out[k]["step"] for k in out}, "generator_sha256": hashes, "bit_equal": hashes["straight"] == hashes["resumed"],
+              "deterministic_algorithms": True, "nondeterministic_ops": [], "seconds": time.perf_counter() - t0}
+    print(json.dumps(record))
+    if steps != [3] or not record["bit_equal"] or set(record["steps"].values()) != {4}:
+        fail(f"kill/resume: {record}")
+    return record
+
+
+def train_loops_phase(torch, np, A, M, root: Path) -> dict:
+    """The training loops through the config entries on synthetic corpora:
+    ``train_flow_matching`` at full width and batch 2 700 (2 steps an epoch)
+    for 2 epochs saving every epoch, then raised to 3 (resumes at step 4,
+    ends at 6); ``train_hifigan`` at full width and batch 64 (2 steps an
+    epoch) for 2 epochs, checkpoint and validation every 2 steps (the
+    validation's generator runs K2 under inference_mode); the kill/resume
+    check; the exported pair through ``load_pretrained`` synthesizing one
+    batch."""
+    from speech_resynth_torch.core.config import config_from_dict
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
+    from speech_resynth_torch.pipeline import train_loops
+    from speech_resynth_torch.pipeline.data import MelDataset
+
+    t0 = time.perf_counter()
+    write_train_corpora(torch, np, audio_io, root)
+    record = {"phase": "train_loops", "corpus_seconds": time.perf_counter() - t0}
+
+    A.flash_attention.launches = 0
+    for epochs in (2, 3):
+        t1 = time.perf_counter()
+        result = train_loops.train_flow_matching(config_from_dict(loop_config(root, "train.json", cfm_epochs=epochs)))
+        torch.cuda.synchronize()
+        steps = sorted(int(p.name) for p in (root / "flow_matching" / "ckpt").iterdir() if p.name.isdigit())
+        record[f"cfm_{epochs}_epochs"] = {"step": result["step"], "checkpoints": steps, "metrics": result["metrics"],
+                                          "seconds": time.perf_counter() - t1}
+    cfm_launches = {"flash_attention": A.flash_attention.launches}
+    if record["cfm_2_epochs"]["checkpoints"] != [2, 4] or record["cfm_3_epochs"]["checkpoints"] != [2, 4, 6]:
+        fail(f"train_flow_matching did not checkpoint and resume as expected: {record}")
+    if cfm_launches["flash_attention"] != 6 * 4:
+        fail(f"train_flow_matching launched K1 {cfm_launches['flash_attention']} times in 6 steps")
+
+    dev = MelDataset(str(root / "wav"), str(root / "spectrogram"), str(root / "dev.txt"), GAN_TRAIN["segment_size"], 400, 320, False)
+    dev_batches = [list(b["mel"].shape[:2]) for b in dev.padded_batches(8, max_utts=32, with_wav=False)]
+    validations = 2  # at steps 2 and 4
+    M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t1 = time.perf_counter()
+    result = train_loops.train_hifigan(config_from_dict(loop_config(root, "wavs.txt")))
+    torch.cuda.synchronize()
+    gan_launches = {"mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    record["hifigan"] = {"step": result["step"], "metrics": result["metrics"], "seconds": time.perf_counter() - t1,
+                         "dev_batches": dev_batches, "validations": validations, "launches": gan_launches}
+    if result["step"] != 4 or gan_launches != {"mrf_branch": 9 * len(dev_batches) * validations, "mrf_stage": 0}:
+        fail(f"train_hifigan: {record['hifigan']}")
+
+    kill = kill_resume_check(torch, root, loop_config(root, "wavs.txt", checkpoint_interval=3, validation_interval=1000))
+
+    decoder = ConditionalFlowMatchingWithHifiGan.load_pretrained(root / "flow_matching" / "hf", root / "hifigan", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    ids = torch.randint(1, CFM_TRAIN["vocab_size"] + 1, (EXPORT_BATCH, EXPORT_UNITS), generator=gen, device="cuda")
+    ids[1:, EXPORT_UNITS * 3 // 4 :] = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    wave, lengths = decoder.synthesize(ids, dt=CFM_TRAIN["dt"], truncation_value=CFM_TRAIN["truncation_value"])
+    torch.cuda.synchronize()
+    export_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                       "mrf_stage": M.mrf_stage_kernel.launches}
+    want = decoder.vocoder.config.waveform_lengths((ids != 0).sum(dim=1))
+    record["export"] = {"batch": [EXPORT_BATCH, EXPORT_UNITS], "lengths": lengths.tolist(), "launches": export_launches}
+    if not torch.equal(lengths, want) or not torch.isfinite(wave).all():
+        fail(f"the exported pair did not synthesize: {record['export']}")
+    print(json.dumps(record))
+    return {"cfm": cfm_launches, "hifigan": gan_launches, "export": export_launches, "dev_batches": dev_batches,
+            "validations": validations, "kill_resume": kill}
+
+
 KERNEL_GROUPS = (
     ("flash_attention (K1)", ("flash_fwd",)),
     ("codebook_assign (K4)", ("codebook_assign", "unpack_ids")),
@@ -1902,7 +2314,7 @@ def main() -> int:
         "clocks_max_sm_mem": smi("clocks.max.sm,clocks.max.mem"),
     }))
 
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
     kernel_library()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0}))
 
@@ -1930,6 +2342,11 @@ def main() -> int:
     slm21 = slm21_phase(torch, np, A, C)
     preprocess = preprocess_phase(torch, np, A, C)
     kmeans_fit_phase(torch, np, C)
+    k1.extend(k1_train_phase(torch, F, A))
+    train_cfm = train_cfm_phase(torch, np, A)
+    train_gan = train_hifigan_phase(torch, np, M)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
+        loops = train_loops_phase(torch, np, A, M, Path(train_tmp))
     torch.cuda.synchronize()
 
     # data-dependent shapes, held after their runs: the duration config's 64-multiple
@@ -1959,6 +2376,12 @@ def main() -> int:
     for b in sorted(set(preprocess["batches"])):
         k1.append(attention_shape(torch, F, A, gen, "preprocess tokenize", b, 12, RESYNTH_FRAMES, 64, *preprocess["key_frames"]))
         k4.append(codebook_shape(torch, C, gen, "preprocess tokenize", b * RESYNTH_FRAMES, ENCODER[2]))
+    # K2 at the HiFi-GAN validation's dev batches, K1 and K2 at the exported pair's synthesis batch
+    for b, frames in sorted(set(map(tuple, loops["dev_batches"]))):
+        k2.append(mrf_path(torch, F, M, gen, voc_cfg, "hifigan validation", frames, b))
+    lo = EXPORT_UNITS * 3 // 4
+    k1.append(attention_shape(torch, F, A, gen, "trained pair decoder", EXPORT_BATCH, 2, EXPORT_UNITS, 128, lo, EXPORT_UNITS))
+    k2.append(mrf_path(torch, F, M, gen, voc_cfg, "trained pair decoder", EXPORT_UNITS, EXPORT_BATCH))
 
     # the shape of every launch counted above, from each path's structure and frames
     by_path = {
@@ -1969,6 +2392,8 @@ def main() -> int:
         **{f"continuation_{k}": continuation[k]["launches"] for k in ("greedy", "sampled")},
         **{f"continuation_speculative_{k}": speculative[k]["launches"] for k in ("greedy", "sampled")},
         "slm21_tokenize": slm21["tokenize"], "slm21_scoring": slm21["scoring"], "preprocess_tokenize": preprocess["launches"],
+        "train_cfm": train_cfm["launches"], "train_hifigan": train_gan["launches"], "train_loops_cfm": loops["cfm"],
+        "train_loops_hifigan": loops["hifigan"], "train_loops_export": loops["export"],
     }
     shapes: dict = {}
 
@@ -2017,6 +2442,13 @@ def main() -> int:
         add("flash_attention", "slm21_scoring", [B_, 12, L_, 64], 12)
     for b in preprocess["batches"]:
         encoder_batch("preprocess_tokenize", RESYNTH_FRAMES, batch=b)
+    train_shape = [CFM_TRAIN["batch_size"], 2, CFM_TRAIN["frames_per_seg"], 128]
+    add("flash_attention", "train_cfm", train_shape, train_cfm["launches"]["flash_attention"])  # 4 a step, 8 with remat
+    add("flash_attention", "train_loops_cfm", train_shape, loops["cfm"]["flash_attention"])
+    for _ in range(loops["validations"]):
+        for b, frames in loops["dev_batches"]:
+            vocoder_call("train_loops_hifigan", frames, b, False)
+    decoder_batch("train_loops_export", EXPORT_UNITS, batch=EXPORT_BATCH)
     for kernel, per_path in shapes.items():
         for path, counts in per_path.items():
             if sum(counts.values()) != by_path[path][kernel]:
@@ -2068,6 +2500,7 @@ def main() -> int:
         entry("codebook_assign", "speech_resynth_torch/ops/csrc/codebook.cu", "speech_resynth_tpu/ops/codebook.py:29",
               k4, resynth_batch, [(record(k4, resynth_encoder), 1)]),
     ]
+    print(json.dumps({"phase": "wall", "seconds": time.perf_counter() - start, "note": "the whole script after the build started"}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -1,12 +1,15 @@
-"""Conditional flow matching mel decoder, inference path.
+"""Conditional flow matching mel decoder.
 
 Counterpart of speech_resynth_tpu/models/cfm.py (``CFMConfig``,
 ``DurationPredictor`` and ``ConditionalFlowMatchingModel``: ``_embed_units``,
-``_velocity``, ``predict_durations``, ``sample``). ``sample`` integrates the
-flow from noise to a log-mel with a fixed-step Euler or midpoint ODE; the ODE
-state and the velocity are f32, and pad frames hold log(1e-5). With
-``predict_duration`` the unit embeddings are first repeated by the predicted
-durations (``ops.length_regulator``) up to a frame bound ``max_frames``.
+``_velocity``, ``loss`` (the JAX ``__call__``), ``predict_durations``,
+``sample``). ``sample`` integrates the flow from noise to a log-mel with a
+fixed-step Euler or midpoint ODE; the ODE state and the velocity are f32,
+and pad frames hold log(1e-5). With ``predict_duration`` the unit embeddings
+are first repeated by the predicted durations (``ops.length_regulator``) up
+to a frame bound ``max_frames``. ``loss`` is the training objective: the
+masked MSE of the predicted velocity against x1 - x0 on the straight path
+from noise x0 to the normalized mel x1, plus the log-domain duration loss.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ LOG_DOMAIN_OFFSET = 1.0  # durations are predicted as log(d + 1)
 
 @dataclasses.dataclass(frozen=True)
 class CFMConfig:
-    """Inference fields of the JAX CFMConfig; training-only fields (dropout,
-    remat) are not ported, and from_pretrained skips them."""
+    """The JAX CFMConfig's fields, in its order (``config.json`` keys)."""
 
     vocab_size: int = 2000
     dim_in: int = 80
@@ -39,12 +41,15 @@ class CFMConfig:
     depth: int = 4
     heads: int = 2
     intermediate_size: int = 896
+    ff_dropout: float = 0.0
     use_unet_skip_connection: bool = False
     conv_pos_embed_kernel_size: int = 31
     conv_pos_embed_groups: int = 256
+    attn_dropout: float = 0.0
     mean: float = -5.8843
     std: float = 2.2615
     predict_duration: bool = False
+    remat: bool = False  # training memory knob: recompute attention and feed-forward in the backward pass
 
     def transformer(self) -> TransformerConfig:
         return TransformerConfig(
@@ -52,24 +57,29 @@ class CFMConfig:
             depth=self.depth,
             heads=self.heads,
             intermediate_size=self.intermediate_size,
+            attn_dropout=self.attn_dropout,
+            ff_dropout=self.ff_dropout,
             use_unet_skip_connection=self.use_unet_skip_connection,
+            remat=self.remat,
         )
 
 
 class DurationPredictor(nn.Module):
-    """Conv1d(dim_cond_emb -> 1, k=3, SAME) in f32; at inference the
-    log-domain output becomes round(exp(out) - 1), clamped at 0, as int32
+    """Conv1d(dim_cond_emb -> 1, k=3, SAME) in f32: the log-domain output in
+    training; at inference round(exp(out) - 1), clamped at 0, as int32
     (torch.round, like jnp.round, rounds half to even)."""
 
     def __init__(self, dim_cond_emb: int, policy: Policy = DEFAULT):
         super().__init__()
         self.conv = nn.Conv1d(dim_cond_emb, 1, 3, padding=1, dtype=policy.param_dtype)
 
-    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        """(B, L, D) -> (B, L) int32 durations."""
+    def forward(self, hidden_states: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, L, D) -> (B, L): f32 log-domain durations (``train``) or int32 durations."""
         out = F.conv1d(
             hidden_states.float().transpose(1, 2), self.conv.weight.float(), self.conv.bias.float(), padding=1
         )[:, 0]
+        if train:
+            return out
         return torch.clamp(torch.round(torch.exp(out) - LOG_DOMAIN_OFFSET), min=0.0).to(torch.int32)
 
 
@@ -110,14 +120,63 @@ class ConditionalFlowMatchingModel(nn.Module):
         emb = F.embedding(input_ids, self.to_cond_emb.weight)
         return emb.masked_fill((input_ids == 0)[..., None], 0)
 
-    def _velocity(self, xt, cond, times, mask) -> torch.Tensor:
-        """One velocity-field evaluation v(x_t, cond, t), returned in f32."""
+    def _velocity(self, xt, cond, times, mask, dropout_seed=None) -> torch.Tensor:
+        """One velocity-field evaluation v(x_t, cond, t), returned in f32;
+        ``dropout_seed`` turns the transformer's dropout on (training)."""
         cd = self.policy.compute_dtype
         x = _linear(torch.cat([xt.to(cd), cond.to(cd)], dim=-1), self.to_embed, cd)
         x = self.conv_embed(x, mask=mask) + x
         time_emb = self.time_cond_mlp(times)
-        x = self.transformer(x, mask=mask, time_cond=time_emb)
+        x = self.transformer(x, mask=mask, time_cond=time_emb, dropout_seed=dropout_seed)
         return _linear(x, self.to_pred, cd).float()
+
+    def loss(
+        self,
+        input_ids: torch.Tensor,
+        spectrogram_labels: torch.Tensor,
+        duration_labels: Optional[torch.Tensor] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        x0: Optional[torch.Tensor] = None,
+        times: Optional[torch.Tensor] = None,
+        dropout_seed: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, dict]:
+        """Training loss (the JAX ``__call__``): (loss, {"mse", "duration_loss"}).
+
+        Frames whose labels are all -100 are padding. The noise ``x0`` (B, N,
+        dim_in) and the flow times ``times`` (B,) are drawn from ``generator``
+        (on the model's device) unless given. ``dropout_seed`` turns dropout
+        on (training mode; a pure function of it seeds every site)."""
+        cfg = self.config
+        mask = torch.any(spectrogram_labels != -100, dim=-1)  # (B, N)
+        batch, seq_len, _ = spectrogram_labels.shape
+        x1 = (spectrogram_labels.float() - cfg.mean) / cfg.std
+        if x0 is None or times is None:
+            if generator is None:
+                raise ValueError("loss() needs a generator (or explicit x0 and times)")
+            x0 = torch.randn(x1.shape, generator=generator, device=x1.device) if x0 is None else x0
+            times = torch.rand((batch,), generator=generator, device=x1.device) if times is None else times
+        x0, times = x0.to(x1.device, torch.float32), times.to(x1.device, torch.float32)
+        t = times[:, None, None]
+        xt = (1 - t) * x0 + t * x1
+        ut = x1 - x0
+
+        cond = self._embed_units(input_ids)
+        duration_loss = torch.zeros((), device=x1.device)
+        if cfg.predict_duration:
+            if duration_labels is None:
+                raise ValueError("a duration-predicting model needs duration_labels")
+            dur_pred = self.duration_predictor(cond, train=True)  # (B, L) log-domain
+            cond, _ = regulate_length(cond, duration_labels, seq_len)
+            token_mask = input_ids != 0
+            dur_target = torch.log(duration_labels.float() + LOG_DOMAIN_OFFSET)
+            sq = torch.where(token_mask, (dur_pred - dur_target) ** 2, 0.0)
+            duration_loss = sq.sum() / token_mask.sum().clamp(min=1)
+
+        pred = self._velocity(xt, cond, times, mask, dropout_seed)
+        sq = torch.where(mask[..., None], (pred - ut) ** 2, 0.0)
+        mse = sq.sum() / (mask.sum() * cfg.dim_in).clamp(min=1)
+        return mse + duration_loss, {"mse": mse, "duration_loss": duration_loss}
 
     @torch.inference_mode()
     def predict_durations(self, input_ids: torch.Tensor) -> torch.Tensor:

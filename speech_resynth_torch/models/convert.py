@@ -5,12 +5,16 @@ applies when it writes an HF-format checkpoint. The trees hold numpy arrays
 (or anything ``np.asarray`` reads); the result loads with
 ``module.load_state_dict`` into ``ConditionalFlowMatchingModel``,
 ``HifiGanGenerator``, ``HubertEncoder`` or ``LlamaLM``, whose parameter
-names are the HF keys. ``hubert_state_dict_from_hf`` and
+names are the HF keys, or into the training discriminators
+``MultiPeriodDiscriminator`` / ``MultiScaleDiscriminator``
+(``mpd_state_dict`` / ``msd_state_dict``: weight norm's ``v`` and ``g`` and
+the spectral norm's ``u`` kept as they are). ``hubert_state_dict_from_hf`` and
 ``llama_state_dict_from_hf`` read HF ``HubertModel`` and ``LlamaForCausalLM``
 state_dicts (the port's copies of speech_resynth_tpu/models/convert.py:
 hubert_params and llama_params).
 
 Layouts (Flax -> torch):
+  Conv2d kernel   (kh, kw, I, O) -> (O, I, kh, kw)
   Conv1d kernel   (K, I, O) -> (O, I, K)
   ConvT1d kernel  (K, I, O) -> (I, O, K)
   Dense kernel    (I, O)    -> (O, I)
@@ -77,6 +81,40 @@ def hifigan_generator_state_dict(params: Mapping, buffers: Optional[Mapping] = N
     else:
         sd["mean"], sd["scale"] = torch.zeros(in_dim), torch.ones(in_dim)
     return sd
+
+
+def _conv2d_w(k) -> torch.Tensor:
+    return _t(np.asarray(k, np.float32).transpose(3, 2, 0, 1))
+
+
+def _discriminator_state_dict(params: Mapping, conv_w, spectral: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"discriminators_{i}" in params:
+        disc, stats = params[f"discriminators_{i}"], (spectral or {}).get(f"discriminators_{i}", {})
+        convs = [(f"convs_{j}", f"convs.{j}") for j in range(len(disc)) if f"convs_{j}" in disc] + [("conv_post", "conv_post")]
+        for theirs, ours in convs:
+            p, base = disc[theirs], f"discriminators.{i}.{ours}"
+            if "kernel" in p:  # spectral-normed
+                sd[f"{base}.weight"] = conv_w(p["kernel"])
+                sd[f"{base}.u"] = _t(stats[theirs]["u"])
+            else:
+                sd[f"{base}.v"] = conv_w(p["v"])
+                sd[f"{base}.g"] = _t(p["g"])
+            sd[f"{base}.bias"] = _t(p["bias"])
+        i += 1
+    return sd
+
+
+def mpd_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``MultiPeriodDiscriminator`` params -> the port's state_dict."""
+    return _discriminator_state_dict(params, _conv2d_w)
+
+
+def msd_state_dict(params: Mapping, spectral: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``MultiScaleDiscriminator`` params and its ``spectral`` collection
+    (the power iteration's ``u``) -> the port's state_dict."""
+    return _discriminator_state_dict(params, _conv1d_w, spectral)
 
 
 def cfm_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -255,6 +293,25 @@ def hubert_state_dict_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     out[POS_CONV + ".weight"] = _weight_normed_conv1d(sd, POS_CONV)
     out[POS_CONV + ".bias"] = _t(_np(sd[POS_CONV + ".bias"]))
     return out
+
+
+def save_pretrained(model_dir, state_dict: Mapping[str, torch.Tensor], config: dict) -> None:
+    """Write ``config.json`` and ``pytorch_model.bin`` (f32 CPU tensors), each
+    through a temporary file renamed into place, so a reader never sees a
+    half-written file. A ``model.safetensors`` left in the directory would
+    shadow the new weights in ``load_checkpoint`` and is removed."""
+    import json
+    import os
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    tmp = model_dir / "config.json.tmp"
+    tmp.write_text(json.dumps(config, indent=2))
+    os.replace(tmp, model_dir / "config.json")
+    tmp = model_dir / "pytorch_model.bin.tmp"
+    torch.save({k: v.detach().float().cpu().contiguous() for k, v in state_dict.items()}, tmp)
+    os.replace(tmp, model_dir / "pytorch_model.bin")
+    (model_dir / "model.safetensors").unlink(missing_ok=True)
 
 
 def load_checkpoint(model_dir: Path) -> Dict[str, torch.Tensor]:

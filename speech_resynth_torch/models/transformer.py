@@ -8,7 +8,16 @@ optional U-Net skip combiners on the back half and a final RMSNorm.
 Activations are (B, N, C) as in the JAX package. Module and parameter names
 follow the HF-format checkpoint keys (``transformer.layers.{i}.{0..4}``), so
 a checkpoint loads with ``load_state_dict``. Attention goes through
-``ops.attention.dot_product_attention``: the flash kernel on the card.
+``ops.attention.dot_product_attention``: the flash kernel on the card, with
+the plain version's gradient when training.
+
+Training (a ``dropout_seed`` given): attention dropout takes the JAX
+package's explicit path (f32 scores, -1e30 on masked keys, softmax, dropout
+on the probabilities), never the kernel; the feed-forward drops out after
+its SiGLU. Each dropout site draws its mask from a generator seeded by the
+step's seed, the layer and the site, so a recompute draws the same mask.
+``remat`` recomputes each layer's attention and feed-forward in the backward
+pass (``torch.utils.checkpoint``) instead of keeping their activations.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.precision import DEFAULT, Policy
 from ..ops.attention import dot_product_attention
@@ -33,7 +43,10 @@ class TransformerConfig:
     depth: int = 4
     heads: int = 2
     intermediate_size: int = 896
+    attn_dropout: float = 0.0
+    ff_dropout: float = 0.0
     use_unet_skip_connection: bool = False
+    remat: bool = False  # recompute attention and feed-forward in the backward pass
 
 
 def rotary_frequencies(seq_len: int, dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
@@ -51,6 +64,19 @@ def apply_rotary(pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t1, t2 = t32[..., : d // 2], t32[..., d // 2 :]
     rotated = torch.cat([-t2, t1], dim=-1)
     return (t32 * torch.cos(pos) + rotated * torch.sin(pos)).to(t.dtype)
+
+
+def site_seed(seed: int, site: int) -> int:
+    """The seed of one dropout site, a pure function of the step's seed and the site."""
+    return (seed * 1_000_003 + site) % 2**63
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout: x / (1 - rate) where a uniform draw from a generator
+    seeded with ``seed`` is at least ``rate``, else 0."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -148,21 +174,29 @@ class ConvPositionEmbed(nn.Module):
 class Attention(nn.Module):
     """Fused-QKV rotary attention."""
 
-    def __init__(self, hidden_size: int, heads: int, policy: Policy = DEFAULT):
+    def __init__(self, hidden_size: int, heads: int, policy: Policy = DEFAULT, dropout: float = 0.0):
         super().__init__()
         self.policy = policy
         self.heads = heads
+        self.dropout = dropout
         self.to_qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=False, dtype=policy.param_dtype)
         self.to_out = nn.Linear(hidden_size, hidden_size, bias=False, dtype=policy.param_dtype)
 
-    def forward(self, x, mask=None, rotary_pos=None):
+    def forward(self, x, mask=None, rotary_pos=None, dropout_seed=None):
         b, n, c = x.shape
         cd = self.policy.compute_dtype
         qkv = _linear(x, self.to_qkv, cd).view(b, n, 3, self.heads, c // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each (B, H, N, D)
         if rotary_pos is not None:
             q, k = apply_rotary(rotary_pos, q), apply_rotary(rotary_pos, k)
-        out = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask)
+        if self.dropout > 0 and dropout_seed is not None:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / q.shape[-1] ** 0.5
+            if mask is not None:
+                scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
+            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, dropout_seed)
+            out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+        else:
+            out = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask)
         out = out.transpose(1, 2).reshape(b, n, c)
         return _linear(out, self.to_out, cd)
 
@@ -171,18 +205,22 @@ class ConvFeedForward(nn.Module):
     """Conv1d(k=3) -> SiGLU (gate = second channel half) -> Conv1d(k=3); masks
     its input and the hidden activation."""
 
-    def __init__(self, hidden_size: int, intermediate_size: int, kernel_size: int = 3, policy: Policy = DEFAULT):
+    def __init__(self, hidden_size: int, intermediate_size: int, kernel_size: int = 3, policy: Policy = DEFAULT,
+                 dropout: float = 0.0):
         super().__init__()
         self.policy = policy
+        self.dropout = dropout
         self.conv1 = nn.Conv1d(hidden_size, 2 * intermediate_size, kernel_size, dtype=policy.param_dtype)
         self.conv2 = nn.Conv1d(intermediate_size, hidden_size, kernel_size, dtype=policy.param_dtype)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, dropout_seed=None):
         cd = self.policy.compute_dtype
         if mask is not None:
             x = x.masked_fill(~mask[..., None], 0)
         value, gate = _conv_same(x, self.conv1, cd).chunk(2, dim=-1)
         h = F.silu(gate) * value
+        if self.dropout > 0 and dropout_seed is not None:
+            h = dropout(h, self.dropout, dropout_seed)
         if mask is not None:
             h = h.masked_fill(~mask[..., None], 0)
         return _conv_same(h, self.conv2, cd)
@@ -207,24 +245,33 @@ class Transformer(nn.Module):
                     [
                         nn.Linear(2 * h, h, bias=False, dtype=policy.param_dtype) if has_skip else None,
                         AdaptiveRMSNorm(h, policy),
-                        Attention(h, config.heads, policy),
+                        Attention(h, config.heads, policy, config.attn_dropout),
                         AdaptiveRMSNorm(h, policy),
-                        ConvFeedForward(h, config.intermediate_size, policy=policy),
+                        ConvFeedForward(h, config.intermediate_size, policy=policy, dropout=config.ff_dropout),
                     ]
                 )
             )
         self.layers = nn.ModuleList(layers)
         self.final_norm = RMSNorm(h, policy)
 
-    def forward(self, x, mask=None, time_cond=None):
+    def forward(self, x, mask=None, time_cond=None, dropout_seed=None):
+        """``dropout_seed``: training mode (dropout on, seeded per layer and site); None at inference."""
         cfg = self.config
         rotary_pos = rotary_frequencies(x.shape[1], cfg.hidden_size // cfg.heads, device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(block, *args):
+            return checkpoint(block, *args, use_reentrant=False) if remat else block(*args)
+
+        def seed(site):
+            return None if dropout_seed is None else site_seed(dropout_seed, site)
+
         skips = []
-        for skip_combiner, attn_norm, attn, ff_norm, ff in self.layers:
+        for ind, (skip_combiner, attn_norm, attn, ff_norm, ff) in enumerate(self.layers):
             if skip_combiner is None:
                 skips.append(x)
             else:
                 x = _linear(torch.cat([x, skips.pop()], dim=-1), skip_combiner, self.policy.compute_dtype)
-            x = attn(attn_norm(x, time_cond), mask, rotary_pos) + x
-            x = ff(ff_norm(x, time_cond), mask) + x
+            x = run(attn, attn_norm(x, time_cond), mask, rotary_pos, seed(2 * ind)) + x
+            x = run(ff, ff_norm(x, time_cond), mask, seed(2 * ind + 1)) + x
         return self.final_norm(x)

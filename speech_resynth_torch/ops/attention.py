@@ -4,7 +4,10 @@ Counterpart of speech_resynth_tpu/ops/attention.py. ``attention_reference``
 is the plain PyTorch version and defines the semantics; ``flash_attention``
 launches ``csrc/flash_attention.cu`` on CUDA tensors; ``dot_product_attention``
 is what the models call: the kernel for a CUDA tensor whose shapes it takes
-(``flash_supported``), the plain version otherwise.
+(``flash_supported``), the plain version otherwise. The kernel has no backward:
+``FlashAttention`` launches it forward and takes the gradient through the
+plain version (``flash_attention_backward``), as the JAX package's
+``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import List, Optional
 
 import torch
 
-from .build import check_launch, kernel_library
+from .build import check_launch, kernel_library, refuse_grad
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -117,7 +120,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Launch the flash-attention kernel on CUDA tensors (B, H, N, D), D in
     (64, 128), f32 or bf16, N_k at most ``MAX_KEYS``. Output in q's dtype.
-    Raises on anything else."""
+    Raises on anything else, and on an input that requires grad while grad
+    is on: the kernel's output has no ``grad_fn`` (``FlashAttention`` gives it one)."""
+    refuse_grad("flash_attention (FlashAttention.apply gives it the plain version's gradient)", q, k, v)
     _check_flash_args(q, k, v, mask, causal)
     b, h, q_len, d = q.shape
     out = torch.empty_like(q)
@@ -145,6 +150,40 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    causal: bool,
+    grad_out: torch.Tensor,
+):
+    """(dq, dk, dv) of attention at (q, k, v) for the output gradient
+    ``grad_out``: autograd through ``attention_reference`` recomputed on
+    detached inputs, so they are the plain version's gradients exactly (the
+    JAX package's ``_flash_bwd``)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attention_reference(q, k, v, mask, causal)
+        return torch.autograd.grad(out, (q, k, v), grad_out)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward with the plain version's gradient; the mask and ``causal`` get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.causal = causal
+        return flash_attention(q, k, v, mask, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, mask, ctx.causal, grad_out)
+        return dq, dk, dv, None, None
+
+
 def flash_supported(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor], causal: bool) -> bool:
     """Whether the flash kernel takes these shapes: head dim in
     ``FLASH_HEAD_DIMS``, at most ``MAX_KEYS`` keys, q_len <= k_len when
@@ -163,9 +202,9 @@ def dot_product_attention(
     causal: bool = False,
 ) -> torch.Tensor:
     """Attention over (B, H, N, D): the flash kernel for CUDA tensors it
-    takes (``flash_supported``), the plain version for the rest and for CPU
-    tensors."""
+    takes (``flash_supported``), through ``FlashAttention`` so a gradient
+    flows; the plain version for the rest and for CPU tensors."""
     if q.is_cuda and flash_supported(q, k, mask, causal):
         mask = None if mask is None else mask.contiguous()
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, causal)
+        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask, causal)
     return attention_reference(q, k, v, mask, causal)

@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -136,3 +138,11 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         text = kernel_library().srt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err} ({text})")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel would be handed a tensor that requires grad while
+    grad is on: its output has no ``grad_fn``, so the gradient would be lost
+    without a word. Training takes the plain path instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward: it takes no tensor that requires grad while grad is on")

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import check_launch, kernel_library
+from .build import check_launch, kernel_library, refuse_grad
 
 
 def half_sq_norms(centers: torch.Tensor) -> torch.Tensor:
@@ -58,7 +58,9 @@ Operands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def assign_kernel(x: torch.Tensor, centers: torch.Tensor, operands: Optional[Operands] = None) -> torch.Tensor:
     """Launch the assignment kernel: x (N, D) f32 or bf16 and centers (K, D)
     f32, contiguous, on the card -> ids (N,) int32. Raises on anything else.
-    ``operands`` is ``codebook_operands(centers)``, made here when omitted."""
+    ``operands`` is ``codebook_operands(centers)``, made here when omitted;
+    ``x`` or ``centers`` requiring grad while grad is on raises (no backward)."""
+    refuse_grad("assign_kernel", x, centers)
     if x.ndim != 2 or centers.ndim != 2 or x.shape[1] != centers.shape[1]:
         raise ValueError(f"assign_kernel wants x (N, D) and centers (K, D); got {tuple(x.shape)}, {tuple(centers.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16) or centers.dtype != torch.float32:

@@ -25,7 +25,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from .build import check_launch, kernel_library
+from .build import check_launch, kernel_library, refuse_grad
 
 LRELU_SLOPE = 0.1
 
@@ -258,6 +258,7 @@ def mrf_stage(x: torch.Tensor, branches: Union[Sequence[Branch], "StageOperands"
 
 
 def _check_kernel_operands(name: str, x: torch.Tensor, branches: Sequence[Branch]) -> None:
+    refuse_grad(f"the {name} kernel", x, *(t for w1, b1, w2, b2, _ in branches for t in (w1, b1, w2, b2)))
     B, C, T = x.shape
     for w1, b1, w2, b2, dilations in branches:
         n_pairs, K = len(dilations), w1.shape[-1]

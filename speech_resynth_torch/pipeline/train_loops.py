@@ -1,24 +1,322 @@
-"""Stage functions of the speech-LM CLI.
+"""Epoch-level training loops and the speech-LM generation stage.
 
-Only ``generate_speechlm`` is ported so far, the counterpart of the function
-of that name in speech_resynth_tpu/pipeline/train_loops.py; the trainers
-wait for ROADMAP.md queue 1 item 9.
+Counterparts of the functions of the same names in
+speech_resynth_tpu/pipeline/train_loops.py, on one process:
+
+* ``train_flow_matching``: the CFM trainer over ``UnitDataset`` batches,
+  checkpoints every ``save_interval_epoch`` epochs with the HF-format
+  export to ``<flow_matching.path>/hf``; a run resumes from its latest
+  checkpoint at the epoch after it (``step // steps_per_epoch + 1``). The
+  dev-set scoring of the JAX loop (``validate_flow_matching``) needs the ASR
+  and MOS scorers, which are not ported yet.
+* ``train_hifigan``: the GAN trainer over ``MelDataset`` crops, checkpoints
+  and the generator's export (to ``hifigan.path``) every
+  ``checkpoint_interval`` steps, full-length validation every
+  ``validation_interval`` steps, a final forced save; a run resumes exactly
+  mid-epoch by skipping the batches it already took (batches are a function
+  of (seed, epoch)).
+* ``generate_speechlm``: textless continuation of a prompt wav.
+
+Exports are ``config.json`` + ``pytorch_model.bin`` with the HF keys the JAX
+package exports, so ``ConditionalFlowMatchingWithHifiGan.load_pretrained``
+serves a trained pair. Batches reach the device through ``prefetch``;
+metrics are read back (a host sync) only every ``summary_interval`` steps.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import json
+import os
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..core.checkpoint import CheckpointManager
 from ..core.device import DeviceLike, resolve_device
+from ..core.metrics import MetricsWriter, StepTimer, trace_span
+from ..core.rng import RngStream
 from ..dsp import audio_io
+from ..dsp.mel import log_mel_spectrogram
+from ..models.cfm import CFMConfig
 from ..models.composite import ConditionalFlowMatchingWithHifiGan
+from ..models.convert import save_pretrained
+from ..models.hifigan import HifiGanConfig, HifiGanGenerator
 from ..tokenizers.bpe import BpeTokenizer
+from .data import MelDataset, UnitDataset
 from .generate import continue_speech, generate_unit_continuation
+from .prefetch import prefetch, to_device
 from .speechlm import _make_encoder, load_lm_from_hf
+
+CFM_KEYS = ("input_ids", "spectrogram_labels", "duration_labels")
+GAN_KEYS = ("mel", "wav", "mel_mask")
+
+
+def _mel_file_list(training_files: str) -> str:
+    """The reference's MelDataset list (a tab-separated file list), or a unit
+    JSON whose keys are the utterance names, written out as ``.filelist``."""
+    path = Path(training_files)
+    if path.suffix != ".json":
+        return training_files
+    with open(path) as f:
+        names = list(json.load(f).keys())
+    list_path = path.with_suffix(".filelist")
+    tmp = list_path.with_suffix(".filelist.tmp")
+    tmp.write_text("\n".join(names) + "\n")
+    os.replace(tmp, list_path)
+    return str(list_path)
+
+
+def _read_metrics(metrics: dict) -> dict:
+    """The step's metrics on the host: this waits for the card."""
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def train_flow_matching(config, device: DeviceLike = None) -> dict:
+    """Train the CFM decoder from ``config.flow_matching`` / ``config.dataset``
+    on ``device`` (the card unless ``"cpu"``); returns the final step and its
+    metrics."""
+    from ..models.speech_encoder import embedding as kmeans_embedding
+    from ..train.cfm import CFMTrainerConfig, make_trainer
+
+    device = resolve_device(device)
+    fm = config.flow_matching
+    model_config = CFMConfig(
+        vocab_size=fm.vocab_size,
+        dim_in=fm.dim_in,
+        dim_cond_emb=fm.dim_cond_emb,
+        hidden_size=fm.hidden_size,
+        depth=fm.depth,
+        heads=fm.heads,
+        intermediate_size=fm.intermediate_size,
+        ff_dropout=fm.ff_dropout,
+        use_unet_skip_connection=fm.use_unet_skip_connection,
+        conv_pos_embed_kernel_size=fm.conv_pos_embed_kernel_size,
+        conv_pos_embed_groups=fm.conv_pos_embed_groups,
+        attn_dropout=fm.attn_dropout,
+        mean=fm.mean,
+        std=fm.std,
+        predict_duration=fm.predict_duration,
+        remat=bool(fm.get("remat") or False),  # optional memory knob, not a reference key
+    )
+    trainer_config = CFMTrainerConfig(
+        batch_size=int(fm.batch_size),
+        frames_per_seg=fm.frames_per_seg,
+        epoch=fm.epoch,
+        warmup_steps=fm.warmup_steps,
+        lr=fm.lr,
+        lr_min=fm.lr_min,
+        max_norm=fm.max_norm,
+        summary_interval=fm.summary_interval,
+        save_interval_epoch=fm.save_interval_epoch,
+        seed=int(config.common.seed),
+        accum_steps=int(fm.get("accum_steps") or 1),
+    )
+    train_set = UnitDataset(
+        config.dataset.train_file,
+        spectrogram_dir=config.dataset.spectrogram_dir,
+        frames_per_seg=fm.frames_per_seg,
+        ext_audio=config.dataset.ext_audio,
+    )
+    batch_size = trainer_config.batch_size
+    steps_per_epoch = max(len(train_set) // batch_size, 1)
+    total_steps = trainer_config.epoch * steps_per_epoch
+
+    table = kmeans_embedding(fm.dense_model_name, fm.quantizer_model_name, fm.vocab_size, device=device)
+    model, state, step_fn = make_trainer(model_config, trainer_config, total_steps, table, device=device)
+
+    path = Path(fm.path)
+    writer = MetricsWriter(path / "logs")
+    timer = StepTimer()
+    rngs = RngStream(trainer_config.seed)
+    values: dict = {}
+    with CheckpointManager(path / "ckpt") as ckpt:
+        start_epoch = 1
+        if ckpt.has_checkpoint():
+            ckpt.restore(state)
+            start_epoch = state.step // steps_per_epoch + 1
+        step = state.step
+        for epoch in range(start_epoch, trainer_config.epoch + 1):
+            batches = train_set.batches(batch_size, seed=trainer_config.seed, epoch=epoch, process_index=0, process_count=1)
+            for batch in prefetch(batches, transform=lambda b: to_device(b, CFM_KEYS, device)):
+                with trace_span("cfm_train_step"):
+                    state, metrics = step_fn(state, batch, rngs.seed_for(step))
+                step += 1
+                timer.tick()
+                if step % trainer_config.summary_interval == 0:
+                    values = _read_metrics(metrics)
+                    writer.scalars(values, step, prefix="train/")
+                    step_time = timer.synced_step_time(step)
+                    if step_time:
+                        writer.scalar("train/steps_per_sec", 1.0 / step_time, step)
+            if epoch % trainer_config.save_interval_epoch == 0:
+                ckpt.save(step, state)
+                _export_cfm(config, model_config, model)
+    writer.close()
+    return {"step": step, "metrics": values}
+
+
+def _export_cfm(config, model_config: CFMConfig, model) -> None:
+    """HF-format export to ``<flow_matching.path>/hf``: the JAX export's keys
+    and its ``config.json`` (the CFM config's fields)."""
+    save_pretrained(Path(config.flow_matching.path) / "hf", model.state_dict(), dataclasses.asdict(model_config))
+
+
+def _hifigan_config(hg) -> HifiGanConfig:
+    d = HifiGanConfig()
+    return HifiGanConfig(
+        upsample_rates=tuple(hg.upsample_rates),
+        upsample_kernel_sizes=tuple(hg.upsample_kernel_sizes),
+        upsample_initial_channel=hg.get("upsample_initial_channel", d.upsample_initial_channel),
+        resblock_kernel_sizes=tuple(hg.get("resblock_kernel_sizes", d.resblock_kernel_sizes)),
+        resblock_dilation_sizes=tuple(tuple(x) for x in hg.get("resblock_dilation_sizes", d.resblock_dilation_sizes)),
+        normalize_before=False,
+    )
+
+
+def train_hifigan(config, device: DeviceLike = None) -> dict:
+    """Train the HiFi-GAN generator and discriminators from ``config.hifigan``
+    / ``config.dataset`` on ``device`` (the card unless ``"cpu"``); returns
+    the final step and its metrics."""
+    from ..train.hifigan import HifiGanTrainerConfig, make_gan_trainer
+
+    device = resolve_device(device)
+    hg = config.hifigan
+    model_config = _hifigan_config(hg)
+    train_set = MelDataset(
+        config.dataset.wav_dir,
+        config.dataset.spectrogram_dir,
+        _mel_file_list(config.dataset.train_file),
+        hg.segment_size,
+        hg.n_fft,
+        hg.hop_size,
+        True,
+        config.dataset.ext_audio,
+    )
+    batch_size = int(hg.batch_size)
+    steps_per_epoch = max(len(train_set) // batch_size, 1)
+    trainer_config = HifiGanTrainerConfig(
+        batch_size=batch_size,
+        segment_size=hg.segment_size,
+        training_epochs=hg.training_epochs,
+        learning_rate=hg.learning_rate,
+        adam_b1=hg.adam_b1,
+        adam_b2=hg.adam_b2,
+        lr_decay=hg.lr_decay,
+        seed=hg.seed,
+        n_fft=hg.n_fft,
+        hop_size=hg.hop_size,
+        steps_per_epoch=steps_per_epoch,
+        stdout_interval=hg.stdout_interval,
+        summary_interval=hg.summary_interval,
+        checkpoint_interval=hg.checkpoint_interval,
+        validation_interval=hg.validation_interval,
+    )
+    (gen, _, _), state, step_fn = make_gan_trainer(model_config, trainer_config, device=device)
+
+    path = Path(hg.path)
+    writer = MetricsWriter(path / "logs")
+    timer = StepTimer()
+    values: dict = {}
+    with CheckpointManager(path / "ckpt") as ckpt:
+        if ckpt.has_checkpoint():
+            ckpt.restore(state)
+        step = state.step
+        start_epoch = step // steps_per_epoch
+        # batches are a function of (seed, epoch): skip the ones the checkpoint already took
+        resume_skip = step - start_epoch * steps_per_epoch
+        for epoch in range(start_epoch, trainer_config.training_epochs):
+            batches = train_set.batches(batch_size, seed=trainer_config.seed, epoch=epoch, process_index=0, process_count=1)
+            if epoch == start_epoch and resume_skip:
+                batches = itertools.islice(batches, resume_skip, None)
+            for batch in prefetch(batches, transform=lambda b: to_device(b, GAN_KEYS, device)):
+                with trace_span("hifigan_train_step"):
+                    state, metrics = step_fn(state, batch)
+                step += 1
+                timer.tick()
+                if step % trainer_config.summary_interval == 0:
+                    values = _read_metrics(metrics)
+                    writer.scalars(values, step, prefix="training/")
+                    # the update that produced this summary had schedule count step - 1
+                    lr = trainer_config.learning_rate * trainer_config.lr_decay ** ((step - 1) // steps_per_epoch)
+                    writer.scalar("training/lr", lr, step)
+                    step_time = timer.synced_step_time(step)
+                    if step_time:
+                        writer.scalar("training/steps_per_sec", 1.0 / step_time, step)
+                if step % trainer_config.checkpoint_interval == 0:
+                    ckpt.save(step, state)
+                    _export_hifigan(config, model_config, gen)
+                if step % trainer_config.validation_interval == 0:
+                    _validate_hifigan(config, gen, trainer_config, step, writer)
+        ckpt.save(step, state, force=True)
+        _export_hifigan(config, model_config, gen)
+    writer.close()
+    return {"step": step, "metrics": values}
+
+
+def _export_hifigan(config, model_config: HifiGanConfig, gen: HifiGanGenerator) -> None:
+    """The generator in HF format to ``hifigan.path``, as the JAX loop exports it."""
+    save_pretrained(
+        Path(config.hifigan.path),
+        gen.state_dict(),
+        {
+            "model_type": "hifigan",
+            "model_in_dim": model_config.model_in_dim,
+            "upsample_initial_channel": model_config.upsample_initial_channel,
+            "upsample_rates": list(model_config.upsample_rates),
+            "upsample_kernel_sizes": list(model_config.upsample_kernel_sizes),
+            "resblock_kernel_sizes": list(model_config.resblock_kernel_sizes),
+            "resblock_dilation_sizes": [list(d) for d in model_config.resblock_dilation_sizes],
+            "leaky_relu_slope": model_config.leaky_relu_slope,
+            "normalize_before": model_config.normalize_before,
+        },
+    )
+
+
+@torch.inference_mode()
+def _validate_hifigan(config, gen: HifiGanGenerator, trainer_config, step: int, writer, max_utts: int = 32) -> None:
+    """Dev mel-L1 over full-length utterances, bucketed by padded length
+    (``MelDataset.padded_batches``), masked to real frames and averaged per
+    frame over the sweep; audio and spectrograms of the first batch logged.
+    Runs under ``inference_mode`` on the generator's device, so K2 serves the
+    narrow stages on the card."""
+    dev_set = MelDataset(
+        config.dataset.wav_dir,
+        config.dataset.spectrogram_dir,
+        _mel_file_list(config.dataset.dev_file),
+        trainer_config.segment_size,
+        trainer_config.n_fft,
+        trainer_config.hop_size,
+        False,  # full-length utterances
+        config.dataset.ext_audio,
+    )
+    if len(dev_set) == 0:
+        return
+    device = gen.conv_pre.weight.device
+    abs_tot, frame_tot, logged = 0.0, 0, False
+    for batch in dev_set.padded_batches(8, max_utts=max_utts, with_wav=False):
+        mel = torch.from_numpy(batch["mel"]).to(device)
+        mask = torch.from_numpy(batch["mel_mask"]).to(device)
+        y_hat = gen(mel)
+        y_hat_mel = log_mel_spectrogram(
+            y_hat, n_fft=trainer_config.n_fft, num_mels=trainer_config.num_mels, hop_size=trainer_config.hop_size
+        )
+        diff = torch.abs(y_hat_mel - mel)
+        abs_tot += float((diff * mask[..., None]).sum())
+        frame_tot += int(mask.sum()) * diff.shape[-1]
+        if not logged:
+            for j in range(min(3, y_hat.shape[0])):
+                true_frames = int(batch["mel_mask"][j].sum())
+                true_len = (true_frames - 1) * trainer_config.hop_size + trainer_config.n_fft
+                writer.audio(f"generated/y_hat_{j}", y_hat[j, :true_len].float().cpu().numpy(), step)
+                writer.spectrogram_figure(f"generated/y_hat_spec_{j}", y_hat_mel[j, :true_frames].float().cpu().numpy().T, step)
+            logged = True
+    if frame_tot:  # a sweep of no batch logs nothing rather than a perfect 0.0
+        writer.scalar("validation/mel_spec_error", abs_tot / frame_tot, step)
+
 
 SAMPLE_RATE = 16000
 

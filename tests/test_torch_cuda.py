@@ -567,3 +567,183 @@ def test_log_mel_on_card_matches_cpu(card):
     x = torch.from_numpy((0.3 * np.sin(np.arange(48000) * 0.05) + 0.1 * rng.standard_normal((4, 48000))).astype(np.float32))
     for fn in (log_mel_spectrogram, whisper_log_mel):
         torch.testing.assert_close(fn(x.cuda()).cpu(), fn(x), rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training on the card: K1's gradient, and no K2 / K3 / K4 under gradient
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_function_gradient_equals_plain_on_card(card, dtype, causal):
+    """K1 through ``dot_product_attention`` with inputs that require grad:
+    one launch, an output with a ``grad_fn`` within ATT_TOL of the plain
+    version, and dq, dk, dv equal to autograd through the plain version (the
+    backward is that computation)."""
+    rng = np.random.default_rng(int(causal))
+    B, H, N, D = 3, 2, 100, 128
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, H, N, D)).astype(np.float32)).to("cuda", dtype) for _ in range(4))
+    mask = torch.arange(N, device="cuda")[None, :] < torch.tensor([[N], [61], [1]], device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = TA.flash_attention.launches
+    out = TA.dot_product_attention(*leaves, mask=mask, causal=causal)
+    assert TA.flash_attention.launches == before + 1 and out.grad_fn is not None
+    out.backward(g)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = TA.attention_reference(*plain, mask, causal)
+    want.backward(g)
+    # for O(1) outputs; a causal row near the start averages few keys and reaches |v| ~ 3
+    tol = ATT_TOL[dtype] * max(1.0, float(want.detach().float().abs().max()))
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_card(card):
+    x = torch.zeros(1, 16, 64, device="cuda", requires_grad=True)
+    w = torch.zeros(1, 16, 16, 3, device="cuda")
+    b = torch.zeros(1, 16, device="cuda")
+    q = torch.zeros(1, 1, 64, 64, device="cuda", requires_grad=True)
+    for call in (
+        lambda: TM.mrf_branch_kernel(x, w, b, w, b, (1,)),
+        lambda: TM.mrf_stage_kernel(x, [(w, b, w, b, (1,))]),
+        lambda: TC.assign_kernel(x[0].T.contiguous(), torch.zeros(4, 16, device="cuda")),
+        lambda: TA.flash_attention(q, q.detach(), q.detach()),
+    ):
+        with pytest.raises(ValueError, match="no backward"):
+            call()
+
+
+@pytest.mark.cuda
+def test_tiny_gan_step_launches_no_mrf_kernel_on_card(card):
+    """A generator whose narrow stages K2 takes (C = 32, 16) trains on the
+    plain conv chain: a step launches neither K2 nor K3 and every generator
+    parameter moves; under ``inference_mode`` the same generator takes K2."""
+    from speech_resynth_torch.core.precision import DEFAULT
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.train.hifigan import HifiGanTrainerConfig, make_gan_trainer
+
+    cfg = HifiGanConfig(model_in_dim=80, upsample_initial_channel=64, upsample_rates=(5, 4), upsample_kernel_sizes=(10, 8),
+                        resblock_kernel_sizes=(3, 7), resblock_dilation_sizes=((1, 3), (1, 3)))
+    (gen, _, _), state, step = make_gan_trainer(cfg, HifiGanTrainerConfig(n_fft=24, hop_size=20), DEFAULT, "cuda")
+    rng = np.random.default_rng(0)
+    T = 16
+    batch = {
+        "mel": torch.from_numpy(rng.standard_normal((2, T, 80)).astype(np.float32) - 5).cuda(),
+        "wav": torch.from_numpy(rng.standard_normal((2, (T - 1) * 20 + 24)).astype(np.float32) * 0.1).cuda(),
+        "mel_mask": torch.ones(2, T, dtype=torch.bool, device="cuda"),
+    }
+    before = [p.detach().clone() for p in gen.parameters()]
+    counts = TM.mrf_branch_kernel.launches, TM.mrf_stage_kernel.launches
+    for fusion in (False, True):
+        with TM.mrf_stage_fusion(fusion):
+            state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert (TM.mrf_branch_kernel.launches, TM.mrf_stage_kernel.launches) == counts
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and state.step == 2
+    assert all(not torch.equal(a, p) for a, p in zip(before, gen.parameters()))
+    with torch.inference_mode():
+        gen(batch["mel"])
+    assert TM.mrf_branch_kernel.launches == counts[0] + 4
+
+
+def _recording(opt):
+    """Record the gradients an ``Optimizer`` is given, on the CPU."""
+    grads, real = [], opt.step
+    opt.step = lambda g: grads.extend(x.detach().cpu() for x in g) or real(g)
+    return grads
+
+
+def _compare_steps(results, metric_keys) -> dict:
+    """Card against CPU after one f32 step: metrics rtol 1e-4; parameters to
+    1e-6 where the CPU gradient exceeds 1e-3 * max|g| of its tensor (Adam's
+    first update is about lr * sign(g), so a gradient near 0 may flip; see
+    tests/test_torch_train_cfm.py)."""
+    (cpu_m, cpu_p, cpu_g), (card_m, card_p, _) = results["cpu"], results["cuda"]
+    rel = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-12) for k in metric_keys}
+    err = 0.0
+    for a, b, g in zip(card_p, cpu_p, cpu_g):
+        live = g.abs() > 1e-3 * g.abs().max()
+        err = max(err, float((a[live] - b[live]).abs().max()) if live.any() else 0.0)
+    record = {"metrics_card": card_m, "metrics_cpu": cpu_m, "metrics_rel_diff": rel, "param_max_abs_diff": err,
+              "tol": {"metrics_rel": 1e-4, "params_abs": 1e-6}}
+    assert all(r <= 1e-4 for r in rel.values()) and err <= 1e-6, record
+    return record
+
+
+def cfm_step_card_vs_cpu(remat: bool) -> dict:
+    """One f32 CFM step (head dim 64, so K1 runs on the card) on the card and
+    on the CPU from the same weights, table, batch, noise and times; K1's
+    launches counted (2 a step at depth 2, 4 with remat)."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.train.cfm import CFMTrainerConfig, make_trainer
+
+    cfg = CFMConfig(vocab_size=20, dim_in=8, dim_cond_emb=12, hidden_size=128, depth=2, heads=2, intermediate_size=64,
+                    conv_pos_embed_kernel_size=7, conv_pos_embed_groups=128, remat=remat)
+    table = np.random.default_rng(1).standard_normal((21, 12)).astype(np.float32)
+    rng = np.random.default_rng(2)
+    ids = rng.integers(1, 21, (3, 40))
+    ids[1, 30:] = 0
+    mels = rng.standard_normal((3, 40, 8)).astype(np.float32) - 5
+    mels[1, 30:] = -100
+    x0, times = rng.standard_normal((3, 40, 8)).astype(np.float32), rng.random(3).astype(np.float32)
+    results, launches = {}, {}
+    for device in ("cpu", "cuda"):
+        model, state, step = make_trainer(cfg, CFMTrainerConfig(warmup_steps=2), 10, table, FLOAT32, device)
+        grads = _recording(state.optimizers["model"])
+        batch = {"input_ids": torch.from_numpy(ids).to(device), "spectrogram_labels": torch.from_numpy(mels).to(device)}
+        before = TA.flash_attention.launches
+        state, metrics = step(state, batch, 0, x0=torch.from_numpy(x0).to(device), times=torch.from_numpy(times).to(device))
+        launches[device] = TA.flash_attention.launches - before
+        params = [p.detach().cpu() for p in state.optimizers["model"].params]
+        results[device] = ({k: float(v) for k, v in metrics.items()}, params, grads)
+    assert launches == {"cpu": 0, "cuda": 2 * (2 if remat else 1)}, launches
+    return {"remat": remat, "k1_launches": launches["cuda"], **_compare_steps(results, ("loss", "grad_norm"))}
+
+
+def gan_step_card_vs_cpu() -> dict:
+    """One f32 GAN step (a small generator, the fixed-width discriminators on
+    324-sample waves) on the card and on the CPU from the same weights and
+    batch; the card launches neither K2 nor K3."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.train.hifigan import HifiGanTrainerConfig, make_gan_trainer
+
+    cfg = HifiGanConfig(model_in_dim=80, upsample_initial_channel=64, upsample_rates=(5, 4), upsample_kernel_sizes=(10, 8),
+                        resblock_kernel_sizes=(3, 7), resblock_dilation_sizes=((1, 3), (1, 3)))
+    tcfg = HifiGanTrainerConfig(n_fft=24, hop_size=20)
+    rng = np.random.default_rng(0)
+    T = 16
+    batch = {
+        "mel": rng.standard_normal((2, T, 80)).astype(np.float32) - 5,
+        "wav": (rng.standard_normal((2, (T - 1) * 20 + 24)) * 0.1).astype(np.float32),
+        "mel_mask": np.arange(T)[None, :] < np.array([[T], [T - 4]]),
+    }
+    results = {}
+    counts = TM.mrf_branch_kernel.launches, TM.mrf_stage_kernel.launches
+    for device in ("cpu", "cuda"):
+        _, state, step = make_gan_trainer(cfg, tcfg, FLOAT32, device)
+        grads = {k: _recording(o) for k, o in state.optimizers.items()}
+        state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        params = [p.detach().cpu() for k in ("gen", "disc") for p in state.optimizers[k].params]
+        results[device] = ({k: float(v) for k, v in metrics.items()}, params, grads["gen"] + grads["disc"])
+    assert (TM.mrf_branch_kernel.launches, TM.mrf_stage_kernel.launches) == counts
+    return _compare_steps(results, ("loss_disc", "loss_gen", "mel_error"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_tiny_cfm_step_launches_k1_on_card(card, remat):
+    """K1 launches 2 a step at depth 2 (4 with remat, which recomputes each
+    attention in the backward pass); the card's f32 step equals the CPU's
+    (``_compare_steps``)."""
+    cfm_step_card_vs_cpu(remat)
+
+
+@pytest.mark.cuda
+def test_tiny_gan_step_card_matches_cpu(card):
+    gan_step_card_vs_cpu()
