@@ -60,9 +60,22 @@
    SIGKILL after a mid-epoch checkpoint and resumed against one run straight
    through (equal generator hashes), and the exported pair synthesizing
    through ``load_pretrained``;
-14. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
+14. trains the speech LM at the full width of configs/speechlm/hubert.yaml:
+   K1 at the LM step's shape (96, 12, 128, 64), causal with a
+   ``UnitTextDataset`` batch's pad mask, its output and gradients against
+   the plain version's, timed beside SDPA forward and forward + backward;
+   ``make_speechlm_trainer`` on that fixed batch, 20 steps under "xla" (no
+   K1) and 20 under "auto" (12 K1 a step), then remat and accum_steps = 2:
+   ms per step, tokens/s, MFU, peak memory, profiles, small f32 steps
+   against the CPU; ``train_speechlm`` on a seeded corpus (checkpoints, the
+   export, dev sLM21 scoring through K1), ``eval_speechlm`` and
+   ``generate_speechlm`` from its checkpoint, a run killed with SIGKILL
+   after epoch 1's checkpoint and resumed against one straight through
+   (equal LM hashes), and the loop as one torchrun-style NCCL rank against
+   the single process (equal loss and hash);
+15. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
    tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
-   trained pair's decoder), profiles device time by kernel group, prints the
+   trained pair's decoder, the LM loop's scoring and generation), profiles device time by kernel group, prints the
    script's wall time and one ``{"kernels": [...]}`` line (launches of every path above, the
    shape of every counted launch, and the times of each kernel at every
    timed shape) and, last, the ``{"ok": true, ...}`` line.
@@ -81,6 +94,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -182,15 +196,16 @@ def timed(torch, fn, plain, library, nbytes: float, flops: float, peak_flops: fl
 
 
 def attention_shape(torch, F, A, gen, path: str, B: int, H: int, N: int, D: int, lo: int, hi: int, causal: bool = False,
-                    masked: bool = True) -> dict:
+                    masked: bool = True, lengths=None) -> dict:
     """K1 against attention_reference at one shape a path launches it at:
-    key lengths drawn in [lo, hi] (row 0 at hi), bidirectional or causal,
-    bf16 and f32; times in bf16 beside SDPA with the same mask. ``masked``
-    False: the kernel gets no mask, as the LM's scoring forward calls it
-    (every key valid)."""
+    key lengths drawn in [lo, hi] (row 0 at hi), or the path's own
+    ``lengths`` (B,), bidirectional or causal, bf16 and f32; times in bf16
+    beside SDPA with the same mask. ``masked`` False: the kernel gets no
+    mask, as the LM's scoring forward calls it (every key valid)."""
     dev = "cuda"
-    lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
-    lengths[0] = hi
+    if lengths is None:
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
+        lengths[0] = hi
     if not masked:
         lengths[:] = N
     full = torch.arange(N, device=dev)[None, :] < lengths[:, None]
@@ -1210,10 +1225,14 @@ def train_bpe(np, BpeTokenizer, units_to_unicode, n_units: int):
     return BpeTokenizer.train(lines, 400, units_to_unicode(range(n_units)))
 
 
-def continuation_config(config_from_dict, tmp: Path, bpe_vocab: int):
+LM_MODEL = dict(vocab_size=16384, hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+                pad_token_id=0, bos_token_id=None, eos_token_id=1)  # configs/speechlm/hubert.yaml model
+
+
+def continuation_config(config_from_dict, tmp: Path):
     """configs/speechlm/hubert.yaml's model and s2u sections over the pieces in ``tmp``."""
     return config_from_dict({
-        "model": {"path": str(tmp / "lm"), "vocab_size": bpe_vocab, "pad_token_id": 0, "bos_token_id": None, "eos_token_id": 1},
+        "model": {"path": str(tmp / "lm"), **LM_MODEL},
         "s2u": {"dense_model_name": CONT_ENCODER[0], "quantizer_model_name": CONT_ENCODER[1], "vocab_size": CONT_ENCODER[2],
                 "tokenizer_path": str(tmp / "tokenizer.json")},
     })
@@ -1223,12 +1242,14 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
     """Textless speech continuation (``generate_speechlm``) at full width with
     stage fusion on: a BPE tokenizer trained by the port on seeded unit
     strings, a 10-s prompt wav, the -duration-prediction decoder and the LM
-    as local directories under ``tmp`` with seeded random weights (left there
-    for the speculative phase), then greedy and seeded sampled runs of 128
+    (a trainer checkpoint, and an HF directory for the speculative phase) as
+    local directories under ``tmp`` with seeded random weights (left there
+    for the later phases), then greedy and seeded sampled runs of 128
     new tokens; launches, output lengths, unit range and reproducibility;
     and the time split of one run."""
     import dataclasses
 
+    from speech_resynth_torch.core.checkpoint import CheckpointManager
     from speech_resynth_torch.core.config import config_from_dict
     from speech_resynth_torch.core.precision import BF16_INFERENCE
     from speech_resynth_torch.dsp import audio_io
@@ -1262,8 +1283,10 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
     with torch.no_grad():  # a trained LM never emits ids past its tokenizer's vocabulary: zero logits there
         lm.lm_head.weight[tok.vocab_size + 2 :] = 0.0
     write_hf_dir(torch, tmp / "lm" / "hf", lm.state_dict(), {"model_type": "llama", **dataclasses.asdict(lm_cfg)})
+    with CheckpointManager(tmp / "lm" / "ckpt") as ckpt:  # generate_speechlm's LM: the trainer's checkpoint
+        ckpt.save(1, {"step": 1, "modules": {"model": {k: v.float() for k, v in lm.state_dict().items()}}, "optimizers": {}})
     del decoder, lm
-    config = continuation_config(config_from_dict, tmp, tok.vocab_size)
+    config = continuation_config(config_from_dict, tmp)
     print(json.dumps({"phase": "continuation_setup", "seconds": time.perf_counter() - t0, "bpe_vocab": tok.vocab_size}))
 
     dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(tmp / "decoder", device="cuda")
@@ -1518,7 +1541,7 @@ def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
 
     voc_cfg = HifiGanConfig()
     tok = BpeTokenizer.from_file(str(tmp / "tokenizer.json"))
-    config = continuation_config(config_from_dict, tmp, tok.vocab_size)
+    config = continuation_config(config_from_dict, tmp)
     enc = _make_encoder(config, device="cuda")
     lm = load_lm_from_hf(tmp / "lm" / "hf", device="cuda")
     dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(tmp / "decoder", device="cuda")
@@ -1852,15 +1875,62 @@ LOOP_UTTS, LOOP_WAVS, LOOP_DEV = 5400, 128, 20  # two CFM steps and two GAN step
 EXPORT_BATCH, EXPORT_UNITS = 4, 200  # the exported pair's synthesis batch
 
 
-def k1_train_phase(torch, F, A) -> list:
-    """K1 through its autograd Function at the CFM step's shape (2 700, 2,
-    100, 128), bf16 and f32, every key valid and ragged: the output against
+def k1_grad_check(torch, A, gen, shape, mask, causal: bool, name: str, label: str) -> dict:
+    """K1 through ``dot_product_attention`` on inputs that require grad (one
+    launch, an output with a ``grad_fn``): the output against
     attention_reference (ATT_TOL, scaled for outputs above 1) and dq, dk, dv
     against autograd through attention_reference on the card (the Function's
-    backward is that computation: tolerance ATT_TOL of max |grad|). Times:
-    the forward records of ``attention_shape`` (K1, plain, SDPA with the same
-    float mask), and forward + backward of the Function, the plain version
-    and SDPA (the library yardstick for a training step's attention)."""
+    backward is that computation: tolerance ATT_TOL of max |grad|)."""
+    dtype = getattr(torch, name)
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = A.flash_attention.launches
+    out = A.dot_product_attention(*leaves, mask=mask, causal=causal)
+    if A.flash_attention.launches != before + 1 or out.grad_fn is None:
+        fail(f"K1 at the {label} shape did not launch once with a gradient ({name})")
+    out.backward(g)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = A.attention_reference(*plain, mask, causal)
+    want.backward(g)
+    torch.cuda.synchronize()
+    fwd_err, fwd_tol = max_err(torch, out.detach(), want.detach()), ATT_TOL[name] * max(1.0, float(want.detach().float().abs().max()))
+    grad_err = max(max_err(torch, a.grad, b.grad) for a, b in zip(leaves, plain))
+    grad_tol = ATT_TOL[name] * max(float(b.grad.float().abs().max()) for b in plain)
+    check = {"path": label, "dtype": name, "fwd_max_abs_err": fwd_err, "fwd_tol": fwd_tol, "grad_max_abs_err": grad_err,
+             "grad_tol": grad_tol}
+    if not torch.isfinite(out.float()).all() or fwd_err > fwd_tol or grad_err > grad_tol:
+        fail(f"K1's gradient at the {label} shape: {check}")
+    return check
+
+
+def k1_fwd_bwd_times(torch, F, A, gen, shape, mask, causal: bool) -> dict:
+    """Host-loop ms of forward + backward in bf16: the Function (K1 forward,
+    the plain version's backward), the plain version, and SDPA with the same
+    float mask (the library yardstick for a training step's attention)."""
+    B, H, N, D = shape
+    q, k, v, g = (torch.randn(B, H, N, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(4))
+    qr, kr, vr = (t.requires_grad_(True) for t in (q, k, v))
+    allowed = mask[:, None, None, :]
+    if causal:
+        allowed = allowed & torch.ones(N, N, dtype=torch.bool, device="cuda").tril()
+    float_mask = torch.zeros(allowed.shape, device="cuda", dtype=torch.bfloat16).masked_fill(~allowed, A.NEG_INF)
+    return {
+        "fwd_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(A.FlashAttention.apply(qr, kr, vr, mask, causal), (qr, kr, vr), g), 10),
+        "plain_fwd_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(A.attention_reference(qr, kr, vr, mask, causal), (qr, kr, vr), g), 10),
+        "library_fwd_bwd_ms": time_ms(
+            torch, lambda: torch.autograd.grad(F.scaled_dot_product_attention(qr, kr, vr, attn_mask=float_mask), (qr, kr, vr), g), 10
+        ),
+    }
+
+
+FWD_BWD_KEYS = ("ms", "graph_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "library_ms", "library_graph_ms", "bound_ms")
+
+
+def k1_train_phase(torch, F, A) -> list:
+    """K1 through its autograd Function at the CFM step's shape (2 700, 2,
+    100, 128), bf16 and f32, every key valid and ragged: ``k1_grad_check``.
+    Times: the forward records of ``attention_shape`` (K1, plain, SDPA with
+    the same float mask), and ``k1_fwd_bwd_times``."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(31)
     B, H, N, D = CFM_TRAIN["batch_size"], 2, CFM_TRAIN["frames_per_seg"], 128
@@ -1870,44 +1940,12 @@ def k1_train_phase(torch, F, A) -> list:
         if ragged:
             lengths = torch.randint(40, N + 1, (B,), generator=gen, device=dev)
         mask = torch.arange(N, device=dev)[None, :] < lengths[:, None]
-        for name in DTYPES:
-            dtype = getattr(torch, name)
-            q, k, v, g = (torch.randn(B, H, N, D, generator=gen, device=dev).to(dtype) for _ in range(4))
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            before = A.flash_attention.launches
-            out = A.dot_product_attention(*leaves, mask=mask)
-            if A.flash_attention.launches != before + 1 or out.grad_fn is None:
-                fail(f"K1 at the training shape did not launch once with a gradient ({name}, ragged={ragged})")
-            out.backward(g)
-            plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            want = A.attention_reference(*plain, mask)
-            want.backward(g)
-            torch.cuda.synchronize()
-            fwd_err, fwd_tol = max_err(torch, out.detach(), want.detach()), ATT_TOL[name] * max(1.0, float(want.detach().float().abs().max()))
-            grad_err = max(max_err(torch, a.grad, b.grad) for a, b in zip(leaves, plain))
-            grad_tol = ATT_TOL[name] * max(float(b.grad.float().abs().max()) for b in plain)
-            check = {"dtype": name, "ragged": ragged, "fwd_max_abs_err": fwd_err, "fwd_tol": fwd_tol,
-                     "grad_max_abs_err": grad_err, "grad_tol": grad_tol}
-            checks.append(check)
-            if not torch.isfinite(out.float()).all() or fwd_err > fwd_tol or grad_err > grad_tol:
-                fail(f"K1's gradient at the training shape: {check}")
-            del leaves, plain, out, want
         label = "cfm training" + (" (ragged)" if ragged else "")
+        checks.extend(k1_grad_check(torch, A, gen, (B, H, N, D), mask, False, name, label) for name in DTYPES)
         record = attention_shape(torch, F, A, gen, label, B, H, N, D, 40 if ragged else N, N)
-        q, k, v, g = (torch.randn(B, H, N, D, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
-        qr, kr, vr = (t.requires_grad_(True) for t in (q, k, v))
-        float_mask = torch.zeros(B, 1, 1, N, device=dev, dtype=torch.bfloat16).masked_fill(~mask[:, None, None, :], A.NEG_INF)
-        record.update(
-            fwd_bwd_ms=time_ms(torch, lambda: torch.autograd.grad(A.FlashAttention.apply(qr, kr, vr, mask, False), (qr, kr, vr), g), 10),
-            plain_fwd_bwd_ms=time_ms(torch, lambda: torch.autograd.grad(A.attention_reference(qr, kr, vr, mask), (qr, kr, vr), g), 10),
-            library_fwd_bwd_ms=time_ms(
-                torch, lambda: torch.autograd.grad(F.scaled_dot_product_attention(qr, kr, vr, attn_mask=float_mask), (qr, kr, vr), g), 10
-            ),
-        )
-        print(json.dumps({"phase": "k1_train_fwd_bwd", "path": label, **{k: record[k] for k in (
-            "ms", "graph_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "library_ms", "library_graph_ms", "bound_ms")}}))
+        record.update(k1_fwd_bwd_times(torch, F, A, gen, (B, H, N, D), mask, False))
+        print(json.dumps({"phase": "k1_train_fwd_bwd", "path": label, **{k: record[k] for k in FWD_BWD_KEYS}}))
         records.append(record)
-        del q, k, v, g, qr, kr, vr
     print(json.dumps({"phase": "k1_train_grad_checks", "cases": checks}))
     torch.cuda.empty_cache()
     return records
@@ -2081,16 +2119,22 @@ def loop_config(root: Path, train_file: str, cfm_epochs: int = 2, **gan) -> dict
     }
 
 
-# One HiFi-GAN run in a process of its own, deterministic: straight through,
-# stopped (to be killed) right after the checkpoint at ``stop_at``, or resumed.
-GAN_RUN = """
+# One training loop (``train_hifigan`` or ``train_speechlm``) in a process of
+# its own, deterministic: straight through, stopped (to be killed) right after
+# the checkpoint at ``stop_at``, or resumed; under torchrun's variables it runs
+# as one rank of a process group. It keeps one checkpoint: a resume reads the
+# latest, and a full-width LM's is 1.65 GB.
+LOOP_RUN = """
 import json, sys, time
 import torch
 torch.use_deterministic_algorithms(True)
+import torch.distributed as dist
 from speech_resynth_torch.core.config import config_from_dict
 from speech_resynth_torch.pipeline import train_loops
-cfg, stop_at = config_from_dict(json.loads(sys.argv[1])), int(sys.argv[2])
+loop, cfg, stop_at = sys.argv[1], config_from_dict(json.loads(sys.argv[2])), int(sys.argv[3])
 class StopAfterSave(train_loops.CheckpointManager):
+    def __init__(self, directory):
+        super().__init__(directory, max_to_keep=1)
     def save(self, step, state, force=False):
         saved = super().save(step, state, force)
         if saved and step == stop_at:
@@ -2098,8 +2142,23 @@ class StopAfterSave(train_loops.CheckpointManager):
             time.sleep(3600)
         return saved
 train_loops.CheckpointManager = StopAfterSave
-print(json.dumps(train_loops.train_hifigan(cfg)), flush=True)
+result = getattr(train_loops, loop)(cfg)
+result["process_group"] = dist.is_initialized() and {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+if dist.is_initialized():
+    dist.destroy_process_group()
+print(json.dumps(result), flush=True)
 """
+
+
+def loop_run(loop: str, config: dict, stop_at: int = -1, env: Optional[dict] = None):
+    """``LOOP_RUN`` of ``train_loops.<loop>`` in a process of its own,
+    CUBLAS_WORKSPACE_CONFIG set before CUDA starts, ``env`` added."""
+    import os
+
+    return subprocess.Popen([sys.executable, "-c", LOOP_RUN, loop, json.dumps(config), str(stop_at)],
+                            cwd=str(Path(__file__).resolve().parent),
+                            env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", **(env or {})),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def generator_hash(hashlib, torch, path: Path) -> str:
@@ -2112,6 +2171,41 @@ def generator_hash(hashlib, torch, path: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def run_result(proc, what: str, timeout: int = 900) -> dict:
+    """The last stdout line of a finished run, as JSON; fails on a non-zero exit."""
+    so, se = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        fail(f"{what} failed: {se[-3000:]}")
+    return json.loads(so.strip().splitlines()[-1])
+
+
+def kill_and_resume(run, ckpt_dir: Path, stop_at: int, what: str) -> dict:
+    """Start the straight run and the run to kill at once (one card holds
+    both, and each is deterministic on its own), SIGKILL the second right
+    after it prints its checkpoint at ``stop_at``, then resume it. ``run(name,
+    stop_at=-1)`` starts a run as a process; ``ckpt_dir(name)`` is where it
+    checkpoints. Returns both runs' results and the steps checkpointed when killed."""
+    import signal
+    import threading
+
+    straight, killed = run("straight"), run("resumed", stop_at=stop_at)
+    watchdog = threading.Timer(900, killed.kill)  # a run that never reaches its checkpoint
+    watchdog.start()
+    try:
+        line = killed.stdout.readline()
+        if line.split() != ["checkpoint", str(stop_at)]:
+            killed.kill()
+            fail(f"the {what} run to kill did not reach its checkpoint: {line!r} {killed.stderr.read()[-3000:]}")
+        killed.send_signal(signal.SIGKILL)
+    finally:
+        watchdog.cancel()
+        killed.wait(timeout=60)
+    steps = sorted(int(p.name) for p in ckpt_dir("resumed").iterdir() if p.name.isdigit())
+    resumed = run("resumed")
+    return {"straight": run_result(straight, f"the straight {what} run"), "resumed": run_result(resumed, f"the resumed {what} run"),
+            "checkpoints_when_killed": steps}
+
+
 def kill_resume_check(torch, root: Path, config: dict) -> dict:
     """``train_hifigan`` at the corpus's 2 steps an epoch for 2 epochs with a
     checkpoint every 3 steps, in processes of their own under
@@ -2120,43 +2214,13 @@ def kill_resume_check(torch, root: Path, config: dict) -> dict:
     right after the mid-epoch checkpoint at step 3, then resumed. The two
     exported generators must be equal bit for bit."""
     import hashlib
-    import os
-    import signal
-    import threading
-
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    repo = str(Path(__file__).resolve().parent)
-    out = {}
 
     def run(name, stop_at=-1):
-        cfg = {**config, "hifigan": {**config["hifigan"], "path": str(root / name)}}
-        return subprocess.Popen([sys.executable, "-c", GAN_RUN, json.dumps(cfg), str(stop_at)], cwd=repo, env=env,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return loop_run("train_hifigan", {**config, "hifigan": {**config["hifigan"], "path": str(root / name)}}, stop_at)
 
     t0 = time.perf_counter()
-    straight = run("straight")
-    so, se = straight.communicate(timeout=600)
-    if straight.returncode:
-        fail(f"the straight HiFi-GAN run failed: {se[-3000:]}")
-    out["straight"] = json.loads(so.strip().splitlines()[-1])
-    killed = run("resumed", stop_at=3)
-    watchdog = threading.Timer(600, killed.kill)  # a run that never reaches its checkpoint
-    watchdog.start()
-    try:
-        line = killed.stdout.readline()
-        if line.split() != ["checkpoint", "3"]:
-            killed.kill()
-            fail(f"the run to kill did not reach its checkpoint: {line!r} {killed.stderr.read()[-3000:]}")
-        killed.send_signal(signal.SIGKILL)
-    finally:
-        watchdog.cancel()
-        killed.wait(timeout=60)
-    steps = sorted(int(p.name) for p in (root / "resumed" / "ckpt").iterdir() if p.name.isdigit())
-    resumed = run("resumed")
-    so, se = resumed.communicate(timeout=600)
-    if resumed.returncode:
-        fail(f"the resumed HiFi-GAN run failed: {se[-3000:]}")
-    out["resumed"] = json.loads(so.strip().splitlines()[-1])
+    out = kill_and_resume(run, lambda name: root / name / "ckpt", 3, "HiFi-GAN")
+    steps = out.pop("checkpoints_when_killed")
     hashes = {k: generator_hash(hashlib, torch, root / k) for k in ("straight", "resumed")}
     record = {"phase": "train_kill_resume", "killed_with": "SIGKILL", "killed_at_checkpoint": 3, "checkpoints_when_killed": steps,
               "steps": {k: out[k]["step"] for k in out}, "generator_sha256": hashes, "bit_equal": hashes["straight"] == hashes["resumed"],
@@ -2233,13 +2297,340 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
             "validations": validations, "kill_resume": kill}
 
 
+LM_TRAIN_BATCH, LM_TRAIN_TOKENS = 96, 128  # configs/speechlm/hubert.yaml batch_size_per_device, units_per_sample
+LM_STEPS = 20
+LM_BPE_IDS = 400  # the continuation phase's BPE vocabulary: the corpora's ids
+LM_LOOP_LINES, LM_LOOP_EPOCHS = 2 * LM_TRAIN_BATCH, 3  # two steps an epoch
+LM_SLM21_PAIRS = 48  # 96 items per sLM21 task: one scoring batch each
+LM_GEN_TOKENS = 64
+
+
+def write_lm_corpus(np, path: Path, lines: int, seed: int) -> None:
+    """BPE-id lines of 40-400 ids below LM_BPE_IDS: about three in four
+    longer than a sample, so UnitTextDataset crops them full and pads the rest."""
+    rng = np.random.default_rng(seed)
+    path.write_text("\n".join(" ".join(map(str, rng.integers(0, LM_BPE_IDS, int(rng.integers(40, 401))))) for _ in range(lines)) + "\n")
+
+
+def lm_train_batch(torch, np, root: Path) -> dict:
+    """The first 96 x 128 batch ``UnitTextDataset`` makes of a seeded corpus, on the card."""
+    from speech_resynth_torch.pipeline.data import UnitTextDataset
+
+    write_lm_corpus(np, root / "lm_batch.txt", LM_TRAIN_BATCH, 52)
+    batch = next(UnitTextDataset(str(root / "lm_batch.txt"), LM_TRAIN_TOKENS).batches(LM_TRAIN_BATCH, seed=0, epoch=1))
+    return {k: torch.from_numpy(v).long().cuda() for k, v in batch.items()}
+
+
+def k1_lm_train_phase(torch, F, A, batch) -> dict:
+    """K1 at the LM training step's shape (96, 12, 128, 64), causal, with the
+    batch's pad mask: ``k1_grad_check`` in bf16 and f32, the forward record
+    of ``attention_shape`` on those key lengths, and ``k1_fwd_bwd_times``."""
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    B, N = batch["input_ids"].shape
+    shape = (B, 12, N, 64)
+    mask = batch["attention_mask"].bool()
+    lengths = mask.sum(dim=1)
+    checks = [k1_grad_check(torch, A, gen, shape, mask, True, name, "lm training") for name in DTYPES]
+    record = attention_shape(torch, F, A, gen, "lm training", *shape, int(lengths.min()), N, causal=True, lengths=lengths)
+    record.update(k1_fwd_bwd_times(torch, F, A, gen, shape, mask, True), full_rows=int((lengths == N).sum()))
+    print(json.dumps({"phase": "k1_lm_train_fwd_bwd", "path": "lm training", **{k: record[k] for k in FWD_BWD_KEYS},
+                      "grad_checks": checks}))
+    torch.cuda.empty_cache()
+    return record
+
+
+def train_speechlm_phase(torch, np, A, batch) -> dict:
+    """The full-width speech LM (configs/speechlm/hubert.yaml: 12 x 768, 12
+    heads of 64, intermediate 3 072, vocab 16 384 + 2; DEFAULT policy: f32
+    parameters, bf16 compute) through ``make_speechlm_trainer`` on one fixed
+    96 x 128 batch (warmup 5 steps, so the 20 steps learn): 20 steps under
+    "xla" (the trainer's default: no K1) and 20 under "auto" (K1 forward in
+    each of the 12 layers), then 3 with remat and 4 micro-steps of
+    accum_steps = 2; ms per step, tokens/s, MFU against 989 TFLOP/s
+    (``core.metrics.step_flops``), peak memory, K1 launches, losses; a step's
+    device profile under each attention; then small f32 steps on the card
+    against the CPU."""
+    from speech_resynth_torch.core.metrics import mfu, step_flops
+    from speech_resynth_torch.core.precision import DEFAULT
+    from speech_resynth_torch.models.llama import LlamaConfig
+    from speech_resynth_torch.train.speechlm import SpeechLMTrainerConfig, make_speechlm_trainer
+    from test_torch_cuda import lm_step_card_vs_cpu
+
+    cfg = LlamaConfig()
+    B, N = batch["input_ids"].shape
+    runs, launches = {}, 0
+    for label, kw, steps in (("xla", {}, LM_STEPS), ("auto", {"attn_implementation": "auto"}, LM_STEPS),
+                             ("remat", {"remat": True}, 3), ("accum_2", {"accum_steps": 2}, 4)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, step = make_speechlm_trainer(cfg, SpeechLMTrainerConfig(warmup_steps=5, **kw), None, 1000, DEFAULT, "cuda")
+        A.flash_attention.launches = 0
+        losses = []
+        for i in range(steps):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        n = A.flash_attention.launches
+        if label == "auto":
+            launches += n
+        flops = step_flops(cfg, B, N, remat=label == "remat")
+        runs[label] = {
+            "attn_implementation": kw.get("attn_implementation", "xla"), "remat": label == "remat",
+            "accum_steps": kw.get("accum_steps", 1), "steps": steps, "updates": state.optimizers["model"].count,
+            "batch": [B, N], "ms_per_step": ms, "tokens_per_s": B * N / ms * 1e3, "step_flops": flops,
+            "mfu": mfu(flops, ms / 1e3, "cuda"), "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "k1_launches": n, "losses": [float(x) for x in losses], "grad_norm": float(metrics["grad_norm"]),
+        }
+        print(json.dumps({"phase": "train_speechlm_step", "run": label, **runs[label]}))
+        if label in ("xla", "auto"):  # after the count: these launches are not the path's
+            profile_phase(torch, f"train_speechlm_step_{label}", lambda: step(state, batch), 1)
+        del state, step, metrics
+        if n != (cfg.num_hidden_layers * steps if label == "auto" else 0):
+            fail(f"LM training ({label}) launched K1 {n} times in {steps} steps")
+    for label in ("xla", "auto"):
+        losses = runs[label]["losses"]
+        if not all(math.isfinite(x) for x in losses) or np.mean(losses[-5:]) >= np.mean(losses[:5]):
+            fail(f"LM training ({label}): the loss is not finite and falling: {losses}")
+    xla, remat = runs["xla"], runs["remat"]
+    rel = {k: abs(runs[k]["losses"][0] - xla["losses"][0]) / abs(xla["losses"][0]) for k in ("auto", "remat", "accum_2")}
+    if max(rel.values()) > 1e-3 or remat["peak_memory_gb"] >= xla["peak_memory_gb"] or runs["accum_2"]["updates"] != 2:
+        fail(f"LM training: first losses against xla's {rel}, remat peak {remat['peak_memory_gb']} GB against "
+             f"{xla['peak_memory_gb']}, accum_2 updates {runs['accum_2']['updates']}")
+    small = [lm_step_card_vs_cpu(impl, r) for impl, r in (("xla", False), ("auto", False), ("auto", True))]
+    print(json.dumps({"phase": "train_speechlm_card_vs_cpu", "cases": small, "first_loss_rel_diff": rel}))
+    torch.cuda.empty_cache()
+    return {"launches": {"flash_attention": launches}, "runs": runs, "card_vs_cpu": small}
+
+
+def write_lm_slm21(np, root: Path) -> dict:
+    """sLM21-shaped unit JSONs (dev and test, LM_SLM21_PAIRS pairs a task:
+    words of 1-30 BPE ids, sentences of 10-60) and each task's gold.csv."""
+    rng = np.random.default_rng(54)
+    files = {}
+    for task, by, cats, (lo, hi) in (("lexical", "frequency", ("high", "mid", "low", "oov"), (1, 30)),
+                                     ("syntactic", "type", ("agreement", "anaphor", "binding", "filler_gap"), (10, 60))):
+        items, rows = {}, []
+        for pair in range(LM_SLM21_PAIRS):
+            for correct in (1, 0):
+                name = f"{task[:3]}_{pair:03d}_{correct}"
+                items[name] = rng.integers(0, LM_BPE_IDS, int(rng.integers(lo, hi + 1))).tolist()
+                rows.append(f"{pair},{name}.wav,{correct},{cats[pair % len(cats)]},test")
+        (root / "sLM21" / task).mkdir(parents=True)
+        (root / "sLM21" / task / "gold.csv").write_text(f"id,filename,correct,{by},subset\n" + "\n".join(rows) + "\n")
+        for split in ("dev", "test"):
+            files[f"{task}_{split}"] = root / f"{task}_{split}.json"
+            files[f"{task}_{split}"].write_text(json.dumps(items))
+    return files
+
+
+def lm_loop_config(root: Path, cont_tmp: Path, files: dict, name: str) -> dict:
+    """configs/speechlm/hubert.yaml at full width over the corpus and JSONs
+    under ``root``, the model at ``root / name``, LM_LOOP_EPOCHS epochs, a
+    summary every step; s2u from the continuation phase's pieces."""
+    return {
+        "dataset": {"train_file": str(root / "train.txt"), "units_per_sample": LM_TRAIN_TOKENS,
+                    "swuggy_dev_file": str(files["lexical_dev"]), "sblimp_dev_file": str(files["syntactic_dev"]),
+                    "swuggy_test_file": str(files["lexical_test"]), "sblimp_test_file": str(files["syntactic_test"]),
+                    "swuggy_dir": str(root / "sLM21" / "lexical"), "sblimp_dir": str(root / "sLM21" / "syntactic"),
+                    "result_dir": str(root / name / "results")},
+        "dataloader": {"batch_size_per_device": LM_TRAIN_BATCH},
+        "model": {"path": str(root / name), **LM_MODEL},
+        "optim": {"epoch": LM_LOOP_EPOCHS, "warmup_steps": 100, "lr": 0.0002, "lr_min": 0.00002, "beta1": 0.9, "beta2": 0.98,
+                  "max_norm": 1.0, "summary_interval": 1},
+        "s2u": {"dense_model_name": CONT_ENCODER[0], "quantizer_model_name": CONT_ENCODER[1], "vocab_size": CONT_ENCODER[2],
+                "tokenizer_path": str(cont_tmp / "tokenizer.json")},
+    }
+
+
+def lm_checkpoint_hash(hashlib, torch, path: Path) -> str:
+    """sha256 over the latest checkpoint's LM tensors in key order (16 hex digits)."""
+    from speech_resynth_torch.core.checkpoint import CheckpointManager
+
+    sd = CheckpointManager(path / "ckpt").read()["modules"]["model"]
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def lm_run(root: Path, config: dict, name: str, stop_at: int = -1, env: Optional[dict] = None):
+    """``train_speechlm`` in ``loop_run`` with the model at ``root / name``."""
+    cfg = {**config, "model": {**config["model"], "path": str(root / name)},
+           "dataset": {**config["dataset"], "result_dir": str(root / name / "results")}}
+    return loop_run("train_speechlm", cfg, stop_at, env)
+
+
+def lm_kill_resume_check(torch, root: Path, config: dict) -> dict:
+    """``train_speechlm`` at 2 steps an epoch for 3 epochs in processes of
+    their own under ``torch.use_deterministic_algorithms(True)``: once
+    straight through; once killed with SIGKILL right after epoch 1's
+    checkpoint (step 2), then resumed (at epoch 2, as the JAX loop resumes).
+    The two final checkpoints' LMs must be equal bit for bit."""
+    import hashlib
+    import shutil
+
+    t0 = time.perf_counter()
+    out = kill_and_resume(lambda name, stop_at=-1: lm_run(root, config, f"kr_{name}", stop_at),
+                          lambda name: root / f"kr_{name}" / "ckpt", 2, "speech-LM")
+    steps = out.pop("checkpoints_when_killed")
+    hashes = {k: lm_checkpoint_hash(hashlib, torch, root / f"kr_{k}") for k in ("straight", "resumed")}
+    record = {"phase": "train_speechlm_kill_resume", "killed_with": "SIGKILL", "killed_at_checkpoint": 2,
+              "checkpoints_when_killed": steps, "steps": {k: out[k]["step"] for k in out},
+              "losses": {k: out[k]["metrics"]["loss"] for k in out}, "lm_sha256": hashes,
+              "bit_equal": hashes["straight"] == hashes["resumed"], "deterministic_algorithms": True,
+              "seconds": time.perf_counter() - t0}
+    print(json.dumps(record))
+    shutil.rmtree(root / "kr_resumed")
+    if steps != [2] or not record["bit_equal"] or set(record["steps"].values()) != {2 * LM_LOOP_EPOCHS}:
+        fail(f"LM kill/resume: {record}")
+    return {**record, "straight": out["straight"], "straight_hash": hashes["straight"]}
+
+
+def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
+    """The speech-LM loop through the config entries at full width on a
+    seeded corpus of LM_LOOP_LINES lines (2 steps an epoch, LM_LOOP_EPOCHS
+    epochs): ``train_speechlm`` (checkpoints, the HF export, the dev sLM21
+    scoring at each epoch's end through K1), ``eval_speechlm`` of the
+    checkpoint (K1; the native pair scorer on the JSONs' gold tables),
+    ``generate_speechlm`` of the checkpoint without and with a decoder
+    directory (the continuation phase's prompt, tokenizer and decoder, stage
+    fusion off: K2); then, in processes of their own, the kill/resume check
+    and ``distributed_phase``."""
+    import shutil
+
+    from speech_resynth_torch.core.config import config_from_dict
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
+    from speech_resynth_torch.pipeline import train_loops
+    from speech_resynth_torch.pipeline.data import load_named_units_from_json
+    from speech_resynth_torch.pipeline.speechlm import load_lm_from_hf
+
+    write_lm_corpus(np, root / "train.txt", LM_LOOP_LINES, 55)
+    files = write_lm_slm21(np, root)
+    config = lm_loop_config(root, cont_tmp, files, "loop")
+    layers = LM_MODEL["num_hidden_layers"]
+    shapes = {split: [list(b["input_ids"].shape) for task in ("lexical", "syntactic")
+                      for b in load_named_units_from_json(str(files[f"{task}_{split}"]), LM_TRAIN_BATCH, 2)]
+              for split in ("dev", "test")}
+    record = {"phase": "speechlm_loop", "scoring_shapes": shapes}
+
+    A.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    result = train_loops.train_speechlm(config_from_dict(config))
+    torch.cuda.synchronize()
+    validation = {"flash_attention": A.flash_attention.launches}
+    ckpts = sorted(int(p.name) for p in (root / "loop" / "ckpt").iterdir() if p.name.isdigit())
+    record["train"] = {"step": result["step"], "metrics": result["metrics"], "checkpoints": ckpts,
+                       "seconds": time.perf_counter() - t0, "launches": validation}
+    want = {"flash_attention": LM_LOOP_EPOCHS * layers * len(shapes["dev"])}
+    scores = (root / "loop" / "results" / "lexical" / "dev.txt").read_text().splitlines()
+    if result["step"] != 2 * LM_LOOP_EPOCHS or ckpts != [2, 4, 6] or validation != want or len(scores) != 2 * LM_SLM21_PAIRS:
+        fail(f"train_speechlm: {record['train']} (K1 expected {want}), {len(scores)} dev scores")
+    exported = load_lm_from_hf(root / "loop" / "hf", device="cuda")  # the export reads back
+    if exported.config.vocab_size != LM_MODEL["vocab_size"] + 2:
+        fail(f"the LM export's config: {exported.config}")
+    del exported
+
+    A.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    numbers = train_loops.eval_speechlm(config_from_dict(config))
+    torch.cuda.synchronize()
+    evaluation = {"flash_attention": A.flash_attention.launches}
+    record["eval"] = {"result": numbers, "seconds": time.perf_counter() - t0, "launches": evaluation}
+    if evaluation != {"flash_attention": layers * len(shapes["test"])} or numbers is None or not all(0 <= v <= 1 for v in numbers.values()):
+        fail(f"eval_speechlm: {record['eval']}")
+
+    generate = {}
+    dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(cont_tmp / "decoder", device="cuda")
+    for label, decoder in (("units", None), ("speech", str(cont_tmp / "decoder"))):
+        A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+        out_wav = root / f"generated_{label}.wav"
+        t0 = time.perf_counter()
+        out = train_loops.generate_speechlm(config_from_dict(config), str(cont_tmp / "prompt.wav"), str(out_wav) if decoder else None,
+                                            decoder, max_new_tokens=LM_GEN_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                    "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+        units = out["units"]
+        ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
+        bound = dec._duration_bound(ids)
+        expected = {"flash_attention": 6 + (64 if decoder else 0), "codebook_assign": 1, "mrf_branch": 9 if decoder else 0, "mrf_stage": 0}
+        generate[label] = {"launches": launches, "expected": expected, "prompt_units": len(units) - len(out["generated_units"]),
+                           "generated_units": len(out["generated_units"]), "bound": bound,
+                           "frames": int(dec.model.predict_durations(ids).sum()), "seconds": time.perf_counter() - t0}
+        if launches != expected or int(units.min()) < 0 or int(units.max()) >= CONT_ENCODER[2]:
+            fail(f"generate_speechlm ({label}) from the checkpoint: {generate[label]}")
+        if decoder:
+            n = int(dec.vocoder.config.waveform_lengths(int(dec.model.predict_durations(ids).sum())))
+            if out["waveform"].size != n or audio_io.info(out_wav) != (SAMPLE_RATE, 1, n):
+                fail(f"generate_speechlm with a decoder: {out['waveform'].size} samples, expected {n}")
+        elif out["waveform"] is not None:
+            fail("generate_speechlm without a decoder returned a waveform")
+    record["generate"] = generate
+    del dec
+    print(json.dumps(record))
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / "loop")  # its checkpoints (1.65 GB each) have been read: room for the runs below
+    one_rank = start_one_rank_run(root, config)  # beside the kill/resume runs: its own process, deterministic
+    kill = lm_kill_resume_check(torch, root, config)
+    distributed = distributed_phase(torch, root, one_rank, kill)
+    return {"validation": validation, "eval": evaluation, "generate": {k: v["launches"] for k, v in generate.items()},
+            "generate_decoder": (generate["speech"]["bound"], generate["speech"]["frames"]), "scoring_shapes": shapes,
+            "kill_resume": kill, "distributed": distributed}
+
+
+TORCHRUN_RANK = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost"}
+
+
+def start_one_rank_run(root: Path, config: dict):
+    """``lm_run`` as one torchrun-style rank (TORCHRUN_RANK and a free port)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return lm_run(root, config, "distributed", env={**TORCHRUN_RANK, "MASTER_PORT": str(port)})
+
+
+def distributed_phase(torch, root: Path, proc, kill: dict) -> dict:
+    """``train_speechlm`` as one torchrun-style rank (``proc``: RANK=0,
+    WORLD_SIZE=1, NCCL through ``distributed_init``: the mesh's DeviceMesh,
+    rank-0 checkpoints) on the loop phase's corpus and config,
+    deterministic: its final loss and checkpoint must equal the straight
+    run's of the kill/resume check (one process, no process group). This
+    machine has one card: no multi-card number is measured here."""
+    import hashlib
+    import shutil
+
+    t0 = time.perf_counter()
+    result = run_result(proc, "the one-rank torchrun LM run")
+    straight = kill["straight"]
+    record = {"phase": "distributed", "env": TORCHRUN_RANK, "process_group": result["process_group"], "step": result["step"],
+              "loss": result["metrics"]["loss"], "loss_single_process": straight["metrics"]["loss"],
+              "lm_sha256": lm_checkpoint_hash(hashlib, torch, root / "distributed"),
+              "lm_sha256_single_process": kill["straight_hash"], "waited_seconds": time.perf_counter() - t0,
+              "multi_card": "not measured: this machine has one card; multi-card numbers wait for a 4-chip benchmark cell"}
+    print(json.dumps(record))
+    shutil.rmtree(root / "distributed")
+    shutil.rmtree(root / "kr_straight")
+    if (result["process_group"] != {"backend": "nccl", "world_size": 1} or record["loss"] != record["loss_single_process"]
+            or record["lm_sha256"] != record["lm_sha256_single_process"] or result["step"] != straight["step"]):
+        fail(f"the one-rank torchrun run differs from the single process: {record}")
+    return record
+
+
 KERNEL_GROUPS = (
     ("flash_attention (K1)", ("flash_fwd",)),
     ("codebook_assign (K4)", ("codebook_assign", "unpack_ids")),
     ("mrf_stage (K3)", ("mrf_stage",)),  # the f32 stage kernel (also K2's f32 variant)
     # cuDNN's conv kernels are implicit GEMMs ("fprop_implicit_gemm"), so they are matched first
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "implicit", "winograd", "fft")),
-    ("matmul (cuBLAS)", ("gemm", "cutlass")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet")),  # nvjet: cuBLASLt's Hopper GEMM kernels
 )
 
 
@@ -2264,8 +2655,12 @@ def profile_phase(torch, path: str, run, batches: int) -> None:
         wall = time.perf_counter() - t0
     groups: dict = {}
     kernels = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+    events = prof.key_averages()
+    # a record_function range (the optimizer's step, a trace_span) also shows on the device's
+    # timeline under its own name, spanning kernels already counted: leave those out
+    ranges = {e.key for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU}
+    for e in events:
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA or e.key in ranges:
             continue
         us = float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
         group = kernel_group(e.key.lower())
@@ -2321,32 +2716,69 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    laps = {"at": time.perf_counter()}
+
+    def lap(name: str) -> None:
+        """The wall seconds of the phase just run, on a line of its own."""
+        now = time.perf_counter()
+        print(json.dumps({"phase": "lap", "after": name, "seconds": now - laps["at"]}), flush=True)
+        laps["at"] = now
+
     voc_cfg = HifiGanConfig()
     ctx = context_frames_for(voc_cfg)
     k1 = attention_phase(torch, F, A)
+    lap("attention_phase")
     k2 = mrf_phase(torch, F, M, voc_cfg, ctx)
+    lap("mrf_phase")
     k3 = stage_phase(torch, M, voc_cfg, ctx)
+    lap("stage_phase")
     k4 = codebook_phase(torch, C)
+    lap("codebook_phase")
     print(json.dumps({"phase": "kernels_checked", "kernels": ["flash_attention", "mrf_branch", "mrf_stage", "codebook_assign"]}))
     serving = slice_phase(torch, np, A, M)
+    lap("slice_phase")
     serving_fused = serving_fused_phase(torch, np, A, M, voc_cfg)
+    lap("serving_fused_phase")
     enc, encoding = encoder_phase(torch, np, A, C)
+    lap("encoder_phase")
     resynth = resynth_phase(torch, np, A, M, C, enc)
+    lap("resynth_phase")
     del enc
     streaming = streaming_phase(torch, np, M)
+    lap("streaming_phase")
     lm_scoring, k1_lm = lm_scoring_phase(torch, F, A, np)
+    lap("lm_scoring_phase")
     k1.append(k1_lm)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as lm_tmp:
-        continuation = continuation_phase(torch, np, A, C, M, Path(lm_tmp))
-        speculative = continuation_speculative_phase(torch, np, A, C, M, Path(lm_tmp))
+    lm_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lm_")  # the continuation's pieces, kept for the LM loop
+    continuation = continuation_phase(torch, np, A, C, M, Path(lm_tmp.name))
+    lap("continuation_phase")
+    speculative = continuation_speculative_phase(torch, np, A, C, M, Path(lm_tmp.name))
+    lap("continuation_speculative_phase")
     slm21 = slm21_phase(torch, np, A, C)
+    lap("slm21_phase")
     preprocess = preprocess_phase(torch, np, A, C)
+    lap("preprocess_phase")
     kmeans_fit_phase(torch, np, C)
+    lap("kmeans_fit_phase")
     k1.extend(k1_train_phase(torch, F, A))
+    lap("k1_train_phase")
     train_cfm = train_cfm_phase(torch, np, A)
+    lap("train_cfm_phase")
     train_gan = train_hifigan_phase(torch, np, M)
+    lap("train_hifigan_phase")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
         loops = train_loops_phase(torch, np, A, M, Path(train_tmp))
+    lap("train_loops_phase")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_loop_") as loop_tmp:
+        lm_batch = lm_train_batch(torch, np, Path(loop_tmp))
+        k1.append(k1_lm_train_phase(torch, F, A, lm_batch))
+        lap("k1_lm_train_phase")
+        train_lm = train_speechlm_phase(torch, np, A, lm_batch)
+        lap("train_speechlm_phase")
+        del lm_batch
+        lm_loop = speechlm_loop_phase(torch, np, A, C, M, Path(loop_tmp), Path(lm_tmp.name))
+    lap("speechlm_loop_phase (and distributed_phase)")
+    lm_tmp.cleanup()
     torch.cuda.synchronize()
 
     # data-dependent shapes, held after their runs: the duration config's 64-multiple
@@ -2382,6 +2814,13 @@ def main() -> int:
     lo = EXPORT_UNITS * 3 // 4
     k1.append(attention_shape(torch, F, A, gen, "trained pair decoder", EXPORT_BATCH, 2, EXPORT_UNITS, 128, lo, EXPORT_UNITS))
     k2.append(mrf_path(torch, F, M, gen, voc_cfg, "trained pair decoder", EXPORT_UNITS, EXPORT_BATCH))
+    # K1 at the LM loop's scoring batches (causal, no mask), K1 and K2 at its generation's decoder bound
+    loop_scoring = lm_loop["scoring_shapes"]
+    for B_, L_ in sorted(set(map(tuple, loop_scoring["dev"] + loop_scoring["test"]))):
+        k1.append(attention_shape(torch, F, A, gen, "speechlm loop scoring", B_, 12, L_, 64, L_, L_, causal=True, masked=False))
+    bound, frames = lm_loop["generate_decoder"]
+    k1.append(attention_shape(torch, F, A, gen, "speechlm loop generate decoder", 1, 2, bound, 128, frames, frames))
+    k2.append(mrf_path(torch, F, M, gen, voc_cfg, "speechlm loop generate decoder", bound, 1))
 
     # the shape of every launch counted above, from each path's structure and frames
     by_path = {
@@ -2394,6 +2833,9 @@ def main() -> int:
         "slm21_tokenize": slm21["tokenize"], "slm21_scoring": slm21["scoring"], "preprocess_tokenize": preprocess["launches"],
         "train_cfm": train_cfm["launches"], "train_hifigan": train_gan["launches"], "train_loops_cfm": loops["cfm"],
         "train_loops_hifigan": loops["hifigan"], "train_loops_export": loops["export"],
+        "train_speechlm": train_lm["launches"], "speechlm_loop_validation": lm_loop["validation"],
+        "speechlm_loop_eval": lm_loop["eval"],
+        **{f"speechlm_loop_generate_{k}": v for k, v in lm_loop["generate"].items()},
     }
     shapes: dict = {}
 
@@ -2449,6 +2891,15 @@ def main() -> int:
         for b, frames in loops["dev_batches"]:
             vocoder_call("train_loops_hifigan", frames, b, False)
     decoder_batch("train_loops_export", EXPORT_UNITS, batch=EXPORT_BATCH)
+    add("flash_attention", "train_speechlm", [LM_TRAIN_BATCH, 12, LM_TRAIN_TOKENS, 64], train_lm["launches"]["flash_attention"])
+    for _ in range(LM_LOOP_EPOCHS):
+        for B_, L_ in loop_scoring["dev"]:
+            add("flash_attention", "speechlm_loop_validation", [B_, 12, L_, 64], 12)
+    for B_, L_ in loop_scoring["test"]:
+        add("flash_attention", "speechlm_loop_eval", [B_, 12, L_, 64], 12)
+    for label in lm_loop["generate"]:
+        encoder_batch(f"speechlm_loop_generate_{label}", ENC_FRAMES, batch=1, layers=6, centers=CONT_ENCODER[2])
+    decoder_batch("speechlm_loop_generate_speech", bound, batch=1)
     for kernel, per_path in shapes.items():
         for path, counts in per_path.items():
             if sum(counts.values()) != by_path[path][kernel]:
@@ -2500,6 +2951,7 @@ def main() -> int:
         entry("codebook_assign", "speech_resynth_torch/ops/csrc/codebook.cu", "speech_resynth_tpu/ops/codebook.py:29",
               k4, resynth_batch, [(record(k4, resynth_encoder), 1)]),
     ]
+    lap("the held shapes and the kernels line")
     print(json.dumps({"phase": "wall", "seconds": time.perf_counter() - start, "note": "the whole script after the build started"}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -32,7 +32,10 @@ class CheckpointManager:
         )
 
     def save(self, step: int, state: Any, force: bool = False) -> bool:
-        """Save ``state.state_dict()`` (a ``train.common.TrainState``) at ``step``. A step at or before the latest saved one is skipped
+        """Save ``state.state_dict()`` (a ``train.common.TrainState``), or
+        ``state`` itself when it is already a state dict (a host copy gathered
+        from the processes, ``core.mesh.host_local_copy``), at ``step``. A
+        step at or before the latest saved one is skipped
         unless ``force``, which replaces a checkpoint of the same step.
         Returns whether it saved."""
         latest = self.latest_step()
@@ -41,7 +44,7 @@ class CheckpointManager:
         tmp = self._dir / f".tmp-{step}-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        torch.save(state.state_dict(), tmp / STATE_FILE)
+        torch.save(state if isinstance(state, dict) else state.state_dict(), tmp / STATE_FILE)
         final = self._dir / str(step)
         if final.exists():
             old = self._dir / f".old-{step}-{os.getpid()}"
@@ -57,11 +60,15 @@ class CheckpointManager:
     def restore(self, state_template: Any, step: Optional[int] = None) -> Any:
         """Load the checkpoint of ``step`` (the latest when None) into
         ``state_template`` (``load_state_dict``) and return it."""
+        state_template.load_state_dict(self.read(step))
+        return state_template
+
+    def read(self, step: Optional[int] = None) -> dict:
+        """The saved state dict of ``step`` (the latest when None), on the CPU."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        state_template.load_state_dict(torch.load(self._dir / str(step) / STATE_FILE, map_location="cpu", weights_only=True))
-        return state_template
+        return torch.load(self._dir / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

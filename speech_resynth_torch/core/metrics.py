@@ -9,8 +9,10 @@ speech_resynth_tpu/core/metrics.py the training loops use).
   (``record_function``); the loops name their steps ``cfm_train_step`` and
   ``hifigan_train_step``, as the JAX loops do.
 
-The JAX module's FLOP counts and MFU read XLA's cost analysis; they have no
-counterpart here yet.
+* ``step_flops`` / ``mfu``: the speech-LM step's FLOP count and its model
+  FLOPs utilization. The JAX module reads the count from XLA's cost
+  analysis; here it is counted from the Llama config and the batch (see
+  ``step_flops``).
 """
 
 from __future__ import annotations
@@ -79,6 +81,15 @@ class MetricsWriter:
         self._writer.add_figure(tag, fig, step)
         plt.close(fig)
 
+    def memory(self, step: int, device=None, prefix: str = "memory/") -> None:
+        """The card's memory in use and its peak, in GB (the reference logs
+        CUDA's peak); nothing for the CPU."""
+        device = torch.device("cuda" if device is None else device)
+        if self._writer is None or device.type != "cuda":
+            return
+        self.scalar(prefix + "in_use (GB)", torch.cuda.memory_allocated(device) / 2**30, step)
+        self.scalar(prefix + "peak (GB)", torch.cuda.max_memory_allocated(device) / 2**30, step)
+
     def flush(self) -> None:
         if self._writer is not None:
             self._writer.flush()
@@ -139,3 +150,49 @@ def trace_span(name: str):
     """A named range on the torch.profiler timeline."""
     with torch.profiler.record_function(name):
         yield
+
+
+# dense bf16 tensor-core peak FLOP/s by device name (NVIDIA's H100 SXM data sheet)
+PEAK_FLOPS = {"H100": 989e12}
+
+
+def device_peak_flops(device=None) -> float:
+    """The bf16 peak of a CUDA device by its name (0.0 for the CPU or an unknown card)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return 0.0
+    name = torch.cuda.get_device_name(device)
+    return next((peak for key, peak in PEAK_FLOPS.items() if key in name), 0.0)
+
+
+def llama_matmul_params(config) -> int:
+    """The parameters a Llama token multiplies: per layer q, k, v, o (D x D
+    each) and the SwiGLU's gate, up, down (D x F each), and the LM head (D x
+    V). The embedding is a lookup, not a product."""
+    d, f = config.hidden_size, config.intermediate_size
+    return config.num_hidden_layers * (4 * d * d + 3 * d * f) + d * config.vocab_size
+
+
+def step_flops(config, batch_size: int, seq_len: int, remat: bool = False) -> float:
+    """FLOPs of one speech-LM training step on a (batch_size, seq_len) batch:
+
+        forward   = 2 * P * T + L * 2 * B * H * d * N * (N + 1)
+        step      = 3 * forward             (the backward is twice the forward)
+        with remat: step * 4 / 3            (the forward once more)
+
+    with P = ``llama_matmul_params``, T = B * N tokens, L layers of H heads
+    of d: the second term is the causal attention's QK^T and PV, each
+    N (N + 1) / 2 dot products of 2 d FLOPs per head. Norms, rotary, softmax
+    and the optimizer are left out (elementwise work)."""
+    b, n = batch_size, seq_len
+    attention = config.num_hidden_layers * 2 * b * config.num_attention_heads * config.head_dim * n * (n + 1)
+    forward = 2 * llama_matmul_params(config) * b * n + attention
+    return 3 * forward * (4 / 3 if remat else 1)
+
+
+def mfu(flops_per_step: float, step_time_s: float, device=None) -> float:
+    """Model FLOPs utilization of one device (0.0 where the peak is unknown)."""
+    peak = device_peak_flops(device)
+    if peak <= 0 or step_time_s <= 0 or flops_per_step <= 0:
+        return 0.0
+    return flops_per_step / step_time_s / peak

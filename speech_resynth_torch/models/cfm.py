@@ -25,7 +25,7 @@ from torch import nn
 from ..core.precision import DEFAULT, Policy
 from ..dsp.mel import MEL_PAD_VALUE
 from ..ops.length_regulator import regulate_length
-from .transformer import ConvPositionEmbed, TimeConditionEmbed, Transformer, TransformerConfig, _linear
+from .transformer import ConvPositionEmbed, TimeConditionEmbed, Transformer, TransformerConfig, _linear, draw_rows
 
 LOG_DOMAIN_OFFSET = 1.0  # durations are predicted as log(d + 1)
 
@@ -120,14 +120,14 @@ class ConditionalFlowMatchingModel(nn.Module):
         emb = F.embedding(input_ids, self.to_cond_emb.weight)
         return emb.masked_fill((input_ids == 0)[..., None], 0)
 
-    def _velocity(self, xt, cond, times, mask, dropout_seed=None) -> torch.Tensor:
+    def _velocity(self, xt, cond, times, mask, dropout_seed=None, rows=None) -> torch.Tensor:
         """One velocity-field evaluation v(x_t, cond, t), returned in f32;
         ``dropout_seed`` turns the transformer's dropout on (training)."""
         cd = self.policy.compute_dtype
         x = _linear(torch.cat([xt.to(cd), cond.to(cd)], dim=-1), self.to_embed, cd)
         x = self.conv_embed(x, mask=mask) + x
         time_emb = self.time_cond_mlp(times)
-        x = self.transformer(x, mask=mask, time_cond=time_emb, dropout_seed=dropout_seed)
+        x = self.transformer(x, mask=mask, time_cond=time_emb, dropout_seed=dropout_seed, dropout_rows=rows)
         return _linear(x, self.to_pred, cd).float()
 
     def loss(
@@ -141,12 +141,41 @@ class ConditionalFlowMatchingModel(nn.Module):
         times: Optional[torch.Tensor] = None,
         dropout_seed: Optional[int] = None,
     ) -> Tuple[torch.Tensor, dict]:
-        """Training loss (the JAX ``__call__``): (loss, {"mse", "duration_loss"}).
+        """Training loss (the JAX ``__call__``): (loss, {"mse", "duration_loss"}),
+        the terms of ``loss_terms`` over their counts."""
+        terms = self.loss_terms(
+            input_ids, spectrogram_labels, duration_labels, generator=generator, x0=x0, times=times, dropout_seed=dropout_seed
+        )
+        mse = terms["sq"] / terms["frames"].clamp(min=1)
+        duration_loss = terms["duration_sq"] / terms["tokens"].clamp(min=1)
+        return mse + duration_loss, {"mse": mse, "duration_loss": duration_loss}
+
+    def loss_terms(
+        self,
+        input_ids: torch.Tensor,
+        spectrogram_labels: torch.Tensor,
+        duration_labels: Optional[torch.Tensor] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        x0: Optional[torch.Tensor] = None,
+        times: Optional[torch.Tensor] = None,
+        dropout_seed: Optional[int] = None,
+        rows: Optional[Tuple[int, int]] = None,
+    ) -> dict:
+        """The loss's sums and their counts: "sq", the squared velocity error
+        summed over the valid frames, over "frames", their count x dim_in;
+        "duration_sq", the squared log-duration error summed over the valid
+        tokens, over "tokens", their count (0 and 0 without a duration
+        predictor). Counts are int64.
 
         Frames whose labels are all -100 are padding. The noise ``x0`` (B, N,
         dim_in) and the flow times ``times`` (B,) are drawn from ``generator``
         (on the model's device) unless given. ``dropout_seed`` turns dropout
-        on (training mode; a pure function of it seeds every site)."""
+        on (training mode; a pure function of it seeds every site). With
+        ``rows = (first, total)`` the batch is a data replica's rows of a
+        global batch of ``total`` rows, and the noise, the flow times and the
+        dropout masks are those rows of the global batch's draws
+        (``transformer.draw_rows``)."""
         cfg = self.config
         mask = torch.any(spectrogram_labels != -100, dim=-1)  # (B, N)
         batch, seq_len, _ = spectrogram_labels.shape
@@ -154,15 +183,18 @@ class ConditionalFlowMatchingModel(nn.Module):
         if x0 is None or times is None:
             if generator is None:
                 raise ValueError("loss() needs a generator (or explicit x0 and times)")
-            x0 = torch.randn(x1.shape, generator=generator, device=x1.device) if x0 is None else x0
-            times = torch.rand((batch,), generator=generator, device=x1.device) if times is None else times
+            if x0 is None:
+                x0 = draw_rows(lambda shape: torch.randn(shape, generator=generator, device=x1.device), x1.shape, rows)
+            if times is None:
+                times = draw_rows(lambda shape: torch.rand(shape, generator=generator, device=x1.device), (batch,), rows)
         x0, times = x0.to(x1.device, torch.float32), times.to(x1.device, torch.float32)
         t = times[:, None, None]
         xt = (1 - t) * x0 + t * x1
         ut = x1 - x0
 
         cond = self._embed_units(input_ids)
-        duration_loss = torch.zeros((), device=x1.device)
+        zero = torch.zeros((), device=x1.device)
+        terms = {"duration_sq": zero, "tokens": zero.long()}
         if cfg.predict_duration:
             if duration_labels is None:
                 raise ValueError("a duration-predicting model needs duration_labels")
@@ -171,12 +203,11 @@ class ConditionalFlowMatchingModel(nn.Module):
             token_mask = input_ids != 0
             dur_target = torch.log(duration_labels.float() + LOG_DOMAIN_OFFSET)
             sq = torch.where(token_mask, (dur_pred - dur_target) ** 2, 0.0)
-            duration_loss = sq.sum() / token_mask.sum().clamp(min=1)
+            terms = {"duration_sq": sq.sum(), "tokens": token_mask.sum()}
 
-        pred = self._velocity(xt, cond, times, mask, dropout_seed)
+        pred = self._velocity(xt, cond, times, mask, dropout_seed, rows)
         sq = torch.where(mask[..., None], (pred - ut) ** 2, 0.0)
-        mse = sq.sum() / (mask.sum() * cfg.dim_in).clamp(min=1)
-        return mse + duration_loss, {"mse": mse, "duration_loss": duration_loss}
+        return {"sq": sq.sum(), "frames": mask.sum() * cfg.dim_in, **terms}
 
     @torch.inference_mode()
     def predict_durations(self, input_ids: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,11 @@ half-split), RMSNorm (eps 1e-6), SwiGLU MLP, causal attention, an untied LM
 head, no biases. Parameter names are the HF ``LlamaForCausalLM`` keys.
 
 Two attention paths, as in the JAX package:
-- the full forward (scoring, no cache) calls ``ops.attention.
-  dot_product_attention(causal=True, mask=...)``, which is the flash kernel
-  K1 on the card;
+- the full forward (training and scoring, no cache) calls ``ops.attention.
+  dot_product_attention(causal=True, mask=..., implementation=...)`` with the
+  model's ``attn_implementation``: ``"auto"`` is the flash kernel K1 on the
+  card where it takes the shape, ``"pallas"`` K1 or an error, ``"xla"`` the
+  plain version (the trainer's default, as in the JAX package);
 - the KV-cache path (prefill at ``cache_index = 0`` and every decode step)
   computes the scores inline, masking keys past each query's absolute
   position with -1e30, and never calls K1. The cache is updated in place.
@@ -25,9 +27,17 @@ The speculative decoders ``lookup_decode`` (greedy, the same ids as
 ``sample_decode``) verify the last committed token and S prompt-lookup
 drafts in one cache-path forward of 1 + S tokens per iteration, which never
 calls K1. They are a Python loop over that cache path; ``buf`` stays on the
-device and the host reads the commit length once per iteration. ``scan_layers``, ``remat`` and
-``hidden_sharding`` are XLA compile and sharding devices with no
-counterpart here; the layers are unrolled.
+device and the host reads the commit length once per iteration.
+
+Training: ``causal_lm_loss`` is the JAX loss (shift, -100 ignored, f32
+log-softmax, mean over valid tokens); ``remat=True`` recomputes each layer
+in the backward pass (``torch.utils.checkpoint``, the same numerics). Every
+projection is a module call (``Projection``), so ``parallel.sharding``'s
+tensor-parallel plan reaches it; with the heads split over a model axis each
+rank sees its own heads (``-1`` in the head reshape). The JAX
+``hidden_sharding`` is ``parallel.sharding``'s sequence-parallel plan here,
+and ``scan_layers`` (an XLA compile device) has no counterpart: the layers
+are unrolled.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.precision import DEFAULT, Policy
 from ..ops.attention import dot_product_attention
@@ -72,10 +83,6 @@ def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> torch.
     return torch.cat([freqs, freqs], dim=-1)
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype))
-
-
 class LlamaRMSNorm(nn.Module):
     def __init__(self, hidden_size: int, eps: float, policy: Policy = DEFAULT):
         super().__init__()
@@ -90,8 +97,20 @@ class LlamaRMSNorm(nn.Module):
         return (self.weight.float() * normed).to(self.policy.compute_dtype)
 
 
-def _projection(n_in: int, n_out: int, policy: Policy) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, dtype=policy.param_dtype)
+class Projection(nn.Linear):
+    """A bias-free linear layer that casts its input and weight to
+    ``compute_dtype`` (the policy's, f32 for the LM head) before the product."""
+
+    def __init__(self, n_in: int, n_out: int, param_dtype: torch.dtype, compute_dtype: torch.dtype):
+        super().__init__(n_in, n_out, bias=False, dtype=param_dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+
+
+def _projection(n_in: int, n_out: int, policy: Policy) -> Projection:
+    return Projection(n_in, n_out, policy.param_dtype, policy.compute_dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -114,10 +133,11 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, policy: Policy = DEFAULT):
+    def __init__(self, config: LlamaConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         self.config = config
         self.policy = policy
+        self.attn_implementation = attn_implementation
         self.input_layernorm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, policy)
         self.self_attn = LlamaAttention(config, policy)
         self.post_attention_layernorm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, policy)
@@ -131,22 +151,20 @@ class LlamaLayer(nn.Module):
         cache: Optional[Dict[str, torch.Tensor]] = None,
         cache_index: Optional[int] = None,
     ) -> torch.Tensor:
-        cfg, cd = self.config, self.policy.compute_dtype
-        b, n, _ = x.shape
-        h, d = cfg.num_attention_heads, cfg.head_dim
+        d = self.config.head_dim
         attn_mod = self.self_attn
 
         residual = x
         hs = self.input_layernorm(x)
-        q, k, v = (
-            _linear(hs, proj, cd).view(b, n, h, d).transpose(1, 2)
-            for proj in (attn_mod.q_proj, attn_mod.k_proj, attn_mod.v_proj)
-        )
+        # (B, N, -1 heads, d): all heads, or this rank's under tensor parallelism (where N is the
+        # whole sequence even when the hidden states between the layers hold a sequence shard)
+        q, k, v = (proj(hs).unflatten(-1, (-1, d)).transpose(1, 2) for proj in (attn_mod.q_proj, attn_mod.k_proj, attn_mod.v_proj))
         q, k = apply_rotary(rope, q), apply_rotary(rope, k)
 
         if cache is not None:
             # prefill and decode: write this chunk's keys and values at
             # cache_index (in place) and attend by absolute position
+            n = q.shape[2]
             cache["k"][:, :, cache_index : cache_index + n] = k
             cache["v"][:, :, cache_index : cache_index + n] = v
             max_len = cache["k"].shape[2]
@@ -157,37 +175,44 @@ class LlamaLayer(nn.Module):
             p = torch.softmax(s, dim=-1).to(cache["v"].dtype)
             attn = torch.einsum("bhqk,bhkd->bhqd", p, cache["v"])
         else:
-            attn = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask, causal=True)
+            attn = dot_product_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), mask=mask, causal=True, implementation=self.attn_implementation
+            )
 
-        attn = attn.transpose(1, 2).reshape(b, n, cfg.hidden_size)
-        x = residual + _linear(attn, attn_mod.o_proj, cd)
+        attn = attn.transpose(1, 2).flatten(2)
+        x = residual + attn_mod.o_proj(attn)
 
         residual = x
         hs = self.post_attention_layernorm(x)
         mlp = self.mlp
-        act = F.silu(_linear(hs, mlp.gate_proj, cd)) * _linear(hs, mlp.up_proj, cd)
-        return residual + _linear(act, mlp.down_proj, cd)
+        return residual + mlp.down_proj(F.silu(mlp.gate_proj(hs)) * mlp.up_proj(hs))
 
 
 class LlamaBackbone(nn.Module):
     """Embedding, layers and final norm (HF ``model``)."""
 
-    def __init__(self, config: LlamaConfig, policy: Policy):
+    def __init__(self, config: LlamaConfig, policy: Policy, attn_implementation: str = "auto"):
         super().__init__()
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, dtype=policy.param_dtype)
-        self.layers = nn.ModuleList(LlamaLayer(config, policy) for _ in range(config.num_hidden_layers))
+        self.layers = nn.ModuleList(LlamaLayer(config, policy, attn_implementation) for _ in range(config.num_hidden_layers))
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, policy)
 
 
 class LlamaLM(nn.Module):
-    """(B, L) token ids -> (f32 logits (B, L, vocab), cache or None)."""
+    """(B, L) token ids -> (f32 logits (B, L, vocab), cache or None).
+    ``attn_implementation`` routes the full forward's attention (see the
+    module doc); ``remat`` recomputes each layer in the backward pass."""
 
-    def __init__(self, config: LlamaConfig = LlamaConfig(), policy: Policy = DEFAULT):
+    def __init__(
+        self, config: LlamaConfig = LlamaConfig(), policy: Policy = DEFAULT, attn_implementation: str = "auto", remat: bool = False
+    ):
         super().__init__()
         self.config = config
         self.policy = policy
-        self.model = LlamaBackbone(config, policy)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, dtype=policy.param_dtype)
+        self.remat = remat
+        self.model = LlamaBackbone(config, policy, attn_implementation)
+        self.lm_head = Projection(config.hidden_size, config.vocab_size, policy.param_dtype, torch.float32)
+
 
     @property
     def device(self) -> torch.device:
@@ -208,11 +233,13 @@ class LlamaLM(nn.Module):
         positions = torch.arange(input_ids.shape[1], device=input_ids.device) + (cache_index or 0)
         rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # (L, head_dim), broadcast over batch and heads
         mask = attention_mask.bool() if attention_mask is not None else None
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.model.layers):
-            x = layer(x, rope, mask, None if cache is None else cache[i], cache_index)
-        x = self.model.norm(x)
-        logits = F.linear(x.float(), self.lm_head.weight.float())
-        return logits, cache
+            if remat:
+                x = checkpoint(layer, x, rope, mask, use_reentrant=False)
+            else:
+                x = layer(x, rope, mask, None if cache is None else cache[i], cache_index)
+        return self.lm_head(self.model.norm(x)), cache
 
     def init_cache(self, batch_size: int, max_len: int) -> Cache:
         """One zeroed {"k", "v"} pair of (B, heads, max_len, head_dim) per layer."""
@@ -223,6 +250,25 @@ class LlamaLM(nn.Module):
             return torch.zeros(shape, dtype=self.policy.compute_dtype, device=self.device)
 
         return [{"k": zeros(), "v": zeros()} for _ in range(cfg.num_hidden_layers)]
+
+
+def causal_lm_loss_terms(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the next-token negative log-likelihoods over valid labels, the
+    number of valid labels): labels shifted by one, -100 ignored, f32
+    log-softmax. Data-parallel steps reduce both over ranks before dividing."""
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != -100
+    safe = torch.where(valid, shift_labels, 0).long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy with -100 ignored (the JAX
+    ``causal_lm_loss``, HF ``.loss``)."""
+    total, count = causal_lm_loss_terms(logits, labels)
+    return total / torch.clamp(count, min=1)
 
 
 def sequence_pseudo_log_prob(logits: torch.Tensor, input_ids: torch.Tensor, pad_id: int = 0) -> torch.Tensor:

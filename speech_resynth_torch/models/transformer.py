@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,11 +71,23 @@ def site_seed(seed: int, site: int) -> int:
     return (seed * 1_000_003 + site) % 2**63
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def draw_rows(draw, shape, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``draw(shape)``, or with ``rows = (first, total)`` (a data replica's
+    rows of a global batch of ``total``) ``draw`` over the global batch and
+    this replica's rows of it: the replicas together draw what one process
+    draws for the whole batch."""
+    if rows is None:
+        return draw(tuple(shape))
+    first, total = rows
+    return draw((total, *shape[1:]))[first : first + shape[0]]
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: x / (1 - rate) where a uniform draw from a generator
-    seeded with ``seed`` is at least ``rate``, else 0."""
+    seeded with ``seed`` is at least ``rate``, else 0 (``rows``: see
+    ``draw_rows``)."""
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    keep = draw_rows(lambda shape: torch.rand(shape, generator=gen, device=x.device), x.shape, rows) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -182,7 +194,7 @@ class Attention(nn.Module):
         self.to_qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=False, dtype=policy.param_dtype)
         self.to_out = nn.Linear(hidden_size, hidden_size, bias=False, dtype=policy.param_dtype)
 
-    def forward(self, x, mask=None, rotary_pos=None, dropout_seed=None):
+    def forward(self, x, mask=None, rotary_pos=None, dropout_seed=None, dropout_rows=None):
         b, n, c = x.shape
         cd = self.policy.compute_dtype
         qkv = _linear(x, self.to_qkv, cd).view(b, n, 3, self.heads, c // self.heads)
@@ -193,7 +205,7 @@ class Attention(nn.Module):
             scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / q.shape[-1] ** 0.5
             if mask is not None:
                 scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
-            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, dropout_seed)
+            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, dropout_seed, dropout_rows)
             out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
         else:
             out = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask)
@@ -213,14 +225,14 @@ class ConvFeedForward(nn.Module):
         self.conv1 = nn.Conv1d(hidden_size, 2 * intermediate_size, kernel_size, dtype=policy.param_dtype)
         self.conv2 = nn.Conv1d(intermediate_size, hidden_size, kernel_size, dtype=policy.param_dtype)
 
-    def forward(self, x, mask=None, dropout_seed=None):
+    def forward(self, x, mask=None, dropout_seed=None, dropout_rows=None):
         cd = self.policy.compute_dtype
         if mask is not None:
             x = x.masked_fill(~mask[..., None], 0)
         value, gate = _conv_same(x, self.conv1, cd).chunk(2, dim=-1)
         h = F.silu(gate) * value
         if self.dropout > 0 and dropout_seed is not None:
-            h = dropout(h, self.dropout, dropout_seed)
+            h = dropout(h, self.dropout, dropout_seed, dropout_rows)
         if mask is not None:
             h = h.masked_fill(~mask[..., None], 0)
         return _conv_same(h, self.conv2, cd)
@@ -254,8 +266,9 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.final_norm = RMSNorm(h, policy)
 
-    def forward(self, x, mask=None, time_cond=None, dropout_seed=None):
-        """``dropout_seed``: training mode (dropout on, seeded per layer and site); None at inference."""
+    def forward(self, x, mask=None, time_cond=None, dropout_seed=None, dropout_rows=None):
+        """``dropout_seed``: training mode (dropout on, seeded per layer and
+        site); None at inference. ``dropout_rows``: see ``draw_rows``."""
         cfg = self.config
         rotary_pos = rotary_frequencies(x.shape[1], cfg.hidden_size // cfg.heads, device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -272,6 +285,6 @@ class Transformer(nn.Module):
                 skips.append(x)
             else:
                 x = _linear(torch.cat([x, skips.pop()], dim=-1), skip_combiner, self.policy.compute_dtype)
-            x = run(attn, attn_norm(x, time_cond), mask, rotary_pos, seed(2 * ind)) + x
-            x = run(ff, ff_norm(x, time_cond), mask, seed(2 * ind + 1)) + x
+            x = run(attn, attn_norm(x, time_cond), mask, rotary_pos, seed(2 * ind), dropout_rows) + x
+            x = run(ff, ff_norm(x, time_cond), mask, seed(2 * ind + 1), dropout_rows) + x
         return self.final_norm(x)

@@ -194,17 +194,33 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tenso
     return q.shape[-1] in FLASH_HEAD_DIMS and k_len <= MAX_KEYS and not (causal and q_len > k_len)
 
 
+IMPLEMENTATIONS = ("auto", "pallas", "xla")
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     causal: bool = False,
+    implementation: str = "auto",
 ) -> torch.Tensor:
-    """Attention over (B, H, N, D): the flash kernel for CUDA tensors it
-    takes (``flash_supported``), through ``FlashAttention`` so a gradient
-    flows; the plain version for the rest and for CPU tensors."""
-    if q.is_cuda and flash_supported(q, k, mask, causal):
-        mask = None if mask is None else mask.contiguous()
-        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask, causal)
+    """Attention over (B, H, N, D), routed by ``implementation`` (the JAX
+    names): ``"auto"`` takes the flash kernel for CUDA tensors it takes
+    (``flash_supported``), through ``FlashAttention`` so a gradient flows,
+    and the plain version for the rest; ``"pallas"`` takes the kernel for
+    every CUDA tensor and raises on a shape it does not take; ``"xla"``
+    always takes the plain version. CPU tensors take the plain version under
+    every name."""
+    if implementation not in IMPLEMENTATIONS:
+        raise ValueError(f"attention implementation {implementation!r} is not one of {IMPLEMENTATIONS}")
+    if q.is_cuda and implementation != "xla":
+        if flash_supported(q, k, mask, causal):
+            mask = None if mask is None else mask.contiguous()
+            return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask, causal)
+        if implementation == "pallas":
+            raise ValueError(
+                f"attention implementation 'pallas': the flash kernel does not take q {tuple(q.shape)}, "
+                f"k {tuple(k.shape)}, causal={causal} (flash_supported)"
+            )
     return attention_reference(q, k, v, mask, causal)

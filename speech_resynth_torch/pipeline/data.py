@@ -1,9 +1,10 @@
 """Datasets and batch shaping (counterpart of speech_resynth_tpu/pipeline/data.py).
 
-The training datasets (``UnitDataset`` for CFM, ``MelDataset`` for HiFi-GAN)
-are copies of the JAX package's: the same shuffles and crops from numpy's
-``default_rng((seed, epoch))`` and ``default_rng((seed, epoch,
-process_index))``, so their batches are byte-equal to the JAX package's.
+The training datasets (``UnitDataset`` for CFM, ``MelDataset`` for HiFi-GAN,
+``UnitTextDataset`` for the speech LM) are copies of the JAX package's: the
+same shuffles and crops from numpy's ``default_rng((seed, epoch))`` and
+``default_rng((seed, epoch, process_index))``, so their batches are
+byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -420,3 +421,56 @@ class MelDataset:
             if with_wav:
                 batch["wav"] = wav
             yield batch
+
+
+# ---------------------------------------------------------------------------
+# speech LM token dataset
+# ---------------------------------------------------------------------------
+
+
+class UnitTextDataset:
+    """Lines of BPE ids for LM training: each id shifted by
+    ``num_special_tokens``, EOS appended, a random crop of
+    ``units_per_sample`` tokens (shorter lines right-padded with id 0); the
+    attention mask is ``ids != 0`` and the labels are -100 at pads."""
+
+    def __init__(self, path: str, units_per_sample: int = 128, num_special_tokens: int = 2, eos_token_id: int = 1):
+        self.sequences: List[np.ndarray] = []
+        with open(path) as f:
+            for line in f:
+                toks = line.split()
+                if toks:
+                    self.sequences.append(np.asarray([int(t) + num_special_tokens for t in toks] + [eos_token_id], np.int32))
+        self.units_per_sample = units_per_sample
+
+    def __len__(self) -> int:
+        return len(self.sequences)
+
+    def _example(self, idx: int, rng: np.random.Generator) -> np.ndarray:
+        seq = self.sequences[idx]
+        n = self.units_per_sample
+        diff = len(seq) - n
+        if diff > 0:
+            start = int(rng.integers(diff))
+            return seq[start : start + n]
+        return np.pad(seq, (0, -diff))
+
+    def batches(
+        self,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        epoch: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+    ) -> Iterator[Dict]:
+        """``batch_size`` is the global batch (see ``_global_batch_plan``);
+        the crops draw from ``default_rng((seed, epoch, process_index))``."""
+        rng = np.random.default_rng((seed, epoch, process_index))
+        for _, idxs in _global_batch_plan(len(self.sequences), batch_size, shuffle, seed, epoch, True, process_index, process_count):
+            ids = np.stack([self._example(i, rng) for i in idxs])
+            yield {
+                "input_ids": ids,
+                "attention_mask": (ids != 0).astype(np.int32),
+                "labels": np.where(ids == 0, -100, ids).astype(np.int32),
+            }

@@ -1,7 +1,12 @@
-"""Epoch-level training loops and the speech-LM generation stage.
+"""Epoch-level training loops and the speech-LM stages that read their checkpoint.
 
 Counterparts of the functions of the same names in
-speech_resynth_tpu/pipeline/train_loops.py, on one process:
+speech_resynth_tpu/pipeline/train_loops.py. Each loop calls
+``core.mesh.distributed_init`` (torchrun's variables start the process group,
+one process per device; without them it runs on one process), takes its
+batch iterator's process index and count from the process group (its data
+coordinate) and has rank 0 alone write checkpoints, exports, logs and
+validation, after a symmetric ``host_local_copy``:
 
 * ``train_flow_matching``: the CFM trainer over ``UnitDataset`` batches,
   checkpoints every ``save_interval_epoch`` epochs with the HF-format
@@ -15,7 +20,22 @@ speech_resynth_tpu/pipeline/train_loops.py, on one process:
   ``validation_interval`` steps, a final forced save; a run resumes exactly
   mid-epoch by skipping the batches it already took (batches are a function
   of (seed, epoch)).
-* ``generate_speechlm``: textless continuation of a prompt wav.
+* ``train_speechlm``: the speech-LM trainer over ``UnitTextDataset``
+  batches of ``batch_size_per_device`` x the process count, data-parallel
+  over the processes; a checkpoint, the HF export to ``<model.path>/hf``
+  and the dev sLM21 scoring at each epoch's end; a run resumes at the epoch after its
+  checkpoint (``step // steps_per_epoch + 1``), as the JAX loop does.
+* ``eval_speechlm``: the sLM21 test evaluation of the checkpoint.
+* ``generate_speechlm``: textless continuation of a prompt wav with the
+  checkpoint's LM.
+
+With several processes each trainer steps on its process's rows of the
+global batch and reduces the gradients over the processes, so a step equals
+the one-process step on the global batch, as the JAX step on its global
+array: the CFM and the LM take their losses over the global counts of valid
+frames or tokens (the CFM's noise, flow times and dropout masks drawn for
+the global batch), the GAN averages, its losses being means over crops of
+one length.
 
 Exports are ``config.json`` + ``pytorch_model.bin`` with the HF keys the JAX
 package exports, so ``ConditionalFlowMatchingWithHifiGan.load_pretrained``
@@ -34,10 +54,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.checkpoint import CheckpointManager
 from ..core.device import DeviceLike, resolve_device
-from ..core.metrics import MetricsWriter, StepTimer, trace_span
+from ..core.mesh import DATA_AXIS, data_coordinates, distributed_init, dp_mesh_for_batch, host_local_copy, make_mesh, process_index
+from ..core.metrics import MetricsWriter, StepTimer, mfu, step_flops, trace_span
 from ..core.rng import RngStream
 from ..dsp import audio_io
 from ..dsp.mel import log_mel_spectrogram
@@ -45,14 +67,16 @@ from ..models.cfm import CFMConfig
 from ..models.composite import ConditionalFlowMatchingWithHifiGan
 from ..models.convert import save_pretrained
 from ..models.hifigan import HifiGanConfig, HifiGanGenerator
+from ..models.llama import LlamaConfig, LlamaLM
 from ..tokenizers.bpe import BpeTokenizer
-from .data import MelDataset, UnitDataset
+from .data import MelDataset, UnitDataset, UnitTextDataset
 from .generate import continue_speech, generate_unit_continuation
 from .prefetch import prefetch, to_device
-from .speechlm import _make_encoder, load_lm_from_hf
+from .speechlm import _make_encoder, aggregate_slm21_scores, evaluate, run_zrc, write_scores
 
 CFM_KEYS = ("input_ids", "spectrogram_labels", "duration_labels")
 GAN_KEYS = ("mel", "wav", "mel_mask")
+LM_KEYS = ("input_ids", "attention_mask", "labels")
 
 
 def _mel_file_list(training_files: str) -> str:
@@ -64,7 +88,8 @@ def _mel_file_list(training_files: str) -> str:
     with open(path) as f:
         names = list(json.load(f).keys())
     list_path = path.with_suffix(".filelist")
-    tmp = list_path.with_suffix(".filelist.tmp")
+    # every process derives the list: a reader never sees another's partial write
+    tmp = list_path.with_suffix(f".filelist.tmp{process_index()}")
     tmp.write_text("\n".join(names) + "\n")
     os.replace(tmp, list_path)
     return str(list_path)
@@ -75,6 +100,21 @@ def _read_metrics(metrics: dict) -> dict:
     return {k: float(v) for k, v in metrics.items()}
 
 
+def _save(ckpt: CheckpointManager, step: int, state, force: bool = False) -> dict:
+    """A host copy of ``state`` gathered on every process (a collective),
+    saved by rank 0; returns the copy."""
+    payload = host_local_copy(state.state_dict())
+    if process_index() == 0:
+        ckpt.save(step, payload, force=force)
+    return payload
+
+
+def _barrier() -> None:
+    """Every process waits here for rank 0's files."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def train_flow_matching(config, device: DeviceLike = None) -> dict:
     """Train the CFM decoder from ``config.flow_matching`` / ``config.dataset``
     on ``device`` (the card unless ``"cpu"``); returns the final step and its
@@ -83,6 +123,7 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
     from ..train.cfm import CFMTrainerConfig, make_trainer
 
     device = resolve_device(device)
+    distributed_init(device)
     fm = config.flow_matching
     model_config = CFMConfig(
         vocab_size=fm.vocab_size,
@@ -121,15 +162,17 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
         frames_per_seg=fm.frames_per_seg,
         ext_audio=config.dataset.ext_audio,
     )
-    batch_size = trainer_config.batch_size
+    mesh, batch_size = dp_mesh_for_batch(trainer_config.batch_size)
+    index, count = data_coordinates(mesh)
     steps_per_epoch = max(len(train_set) // batch_size, 1)
     total_steps = trainer_config.epoch * steps_per_epoch
 
     table = kmeans_embedding(fm.dense_model_name, fm.quantizer_model_name, fm.vocab_size, device=device)
-    model, state, step_fn = make_trainer(model_config, trainer_config, total_steps, table, device=device)
+    model, state, step_fn = make_trainer(model_config, trainer_config, total_steps, table, device=device,
+                                         data_group=mesh.group(DATA_AXIS) if count > 1 else None)
 
     path = Path(fm.path)
-    writer = MetricsWriter(path / "logs")
+    writer = MetricsWriter(path / "logs", enabled=process_index() == 0)
     timer = StepTimer()
     rngs = RngStream(trainer_config.seed)
     values: dict = {}
@@ -140,7 +183,7 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
             start_epoch = state.step // steps_per_epoch + 1
         step = state.step
         for epoch in range(start_epoch, trainer_config.epoch + 1):
-            batches = train_set.batches(batch_size, seed=trainer_config.seed, epoch=epoch, process_index=0, process_count=1)
+            batches = train_set.batches(batch_size, seed=trainer_config.seed, epoch=epoch, process_index=index, process_count=count)
             for batch in prefetch(batches, transform=lambda b: to_device(b, CFM_KEYS, device)):
                 with trace_span("cfm_train_step"):
                     state, metrics = step_fn(state, batch, rngs.seed_for(step))
@@ -153,8 +196,10 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
                     if step_time:
                         writer.scalar("train/steps_per_sec", 1.0 / step_time, step)
             if epoch % trainer_config.save_interval_epoch == 0:
-                ckpt.save(step, state)
-                _export_cfm(config, model_config, model)
+                _save(ckpt, step, state)
+                if process_index() == 0:
+                    _export_cfm(config, model_config, model)
+                _barrier()
     writer.close()
     return {"step": step, "metrics": values}
 
@@ -184,6 +229,7 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
     from ..train.hifigan import HifiGanTrainerConfig, make_gan_trainer
 
     device = resolve_device(device)
+    distributed_init(device)
     hg = config.hifigan
     model_config = _hifigan_config(hg)
     train_set = MelDataset(
@@ -196,7 +242,8 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
         True,
         config.dataset.ext_audio,
     )
-    batch_size = int(hg.batch_size)
+    mesh, batch_size = dp_mesh_for_batch(int(hg.batch_size))
+    index, count = data_coordinates(mesh)
     steps_per_epoch = max(len(train_set) // batch_size, 1)
     trainer_config = HifiGanTrainerConfig(
         batch_size=batch_size,
@@ -215,10 +262,12 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
         checkpoint_interval=hg.checkpoint_interval,
         validation_interval=hg.validation_interval,
     )
-    (gen, _, _), state, step_fn = make_gan_trainer(model_config, trainer_config, device=device)
+    (gen, _, _), state, step_fn = make_gan_trainer(model_config, trainer_config, device=device,
+                                                   data_group=mesh.group(DATA_AXIS) if count > 1 else None)
 
     path = Path(hg.path)
-    writer = MetricsWriter(path / "logs")
+    rank0 = process_index() == 0
+    writer = MetricsWriter(path / "logs", enabled=rank0)
     timer = StepTimer()
     values: dict = {}
     with CheckpointManager(path / "ckpt") as ckpt:
@@ -229,7 +278,7 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
         # batches are a function of (seed, epoch): skip the ones the checkpoint already took
         resume_skip = step - start_epoch * steps_per_epoch
         for epoch in range(start_epoch, trainer_config.training_epochs):
-            batches = train_set.batches(batch_size, seed=trainer_config.seed, epoch=epoch, process_index=0, process_count=1)
+            batches = train_set.batches(batch_size, seed=trainer_config.seed, epoch=epoch, process_index=index, process_count=count)
             if epoch == start_epoch and resume_skip:
                 batches = itertools.islice(batches, resume_skip, None)
             for batch in prefetch(batches, transform=lambda b: to_device(b, GAN_KEYS, device)):
@@ -247,12 +296,16 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
                     if step_time:
                         writer.scalar("training/steps_per_sec", 1.0 / step_time, step)
                 if step % trainer_config.checkpoint_interval == 0:
-                    ckpt.save(step, state)
-                    _export_hifigan(config, model_config, gen)
-                if step % trainer_config.validation_interval == 0:
+                    _save(ckpt, step, state)
+                    if rank0:
+                        _export_hifigan(config, model_config, gen)
+                    _barrier()
+                if step % trainer_config.validation_interval == 0 and rank0:
                     _validate_hifigan(config, gen, trainer_config, step, writer)
-        ckpt.save(step, state, force=True)
-        _export_hifigan(config, model_config, gen)
+        _save(ckpt, step, state, force=True)
+        if rank0:
+            _export_hifigan(config, model_config, gen)
+        _barrier()
     writer.close()
     return {"step": step, "metrics": values}
 
@@ -321,6 +374,171 @@ def _validate_hifigan(config, gen: HifiGanGenerator, trainer_config, step: int, 
 SAMPLE_RATE = 16000
 
 
+def _lm_config(config):
+    """(LlamaConfig, special-token count) from ``config.model``: the vocab
+    grown by the distinct pad, bos and eos ids, as the JAX loops build it."""
+    m = config.model
+    special = {m.get(k) for k in ("pad_token_id", "bos_token_id", "eos_token_id")}
+    num_special = len(special - {None})
+    model_config = LlamaConfig(
+        vocab_size=m.vocab_size + num_special,
+        hidden_size=m.hidden_size,
+        intermediate_size=m.intermediate_size,
+        num_hidden_layers=m.num_hidden_layers,
+        num_attention_heads=m.num_attention_heads,
+        pad_token_id=m.get("pad_token_id") or 0,
+        bos_token_id=m.get("bos_token_id"),
+        eos_token_id=m.get("eos_token_id"),
+    )
+    return model_config, num_special
+
+
+def train_speechlm(config, device: DeviceLike = None) -> dict:
+    """Train the speech LM from ``config.model`` / ``config.optim`` /
+    ``config.dataset`` on ``device`` (the card unless ``"cpu"``), one process
+    per device under torchrun; returns the final step and its metrics."""
+    from ..train.speechlm import SpeechLMTrainerConfig, make_speechlm_trainer
+
+    device = resolve_device(device)
+    distributed_init(device)
+    mesh = make_mesh()
+    model_config, num_special = _lm_config(config)
+    optim = config.optim
+    trainer_config = SpeechLMTrainerConfig(
+        batch_size_per_device=config.dataloader.batch_size_per_device,
+        units_per_sample=config.dataset.units_per_sample,
+        epoch=optim.epoch,
+        warmup_steps=optim.warmup_steps,
+        lr=optim.lr,
+        lr_min=optim.lr_min,
+        beta1=optim.beta1,
+        beta2=optim.beta2,
+        max_norm=optim.max_norm,
+        summary_interval=optim.summary_interval,
+        remat=bool(optim.get("remat") or False),  # optional memory knob, not a reference key
+        accum_steps=int(optim.get("accum_steps") or 1),
+    )
+    train_set = UnitTextDataset(
+        config.dataset.train_file,
+        units_per_sample=trainer_config.units_per_sample,
+        num_special_tokens=num_special,
+        eos_token_id=config.model.eos_token_id,
+    )
+    index, count = data_coordinates(mesh)
+    global_batch = trainer_config.batch_size_per_device * mesh.size
+    steps_per_epoch = max(len(train_set) // global_batch, 1)
+    total_steps = trainer_config.epoch * steps_per_epoch
+    model, state, step_fn = make_speechlm_trainer(model_config, trainer_config, mesh, total_steps, device=device)
+    flops = step_flops(model_config, trainer_config.batch_size_per_device, trainer_config.units_per_sample, trainer_config.remat)
+
+    path = Path(config.model.path)
+    rank0 = process_index() == 0
+    writer = MetricsWriter(path / "logs", enabled=rank0)
+    timer = StepTimer()
+    values: dict = {}
+    with CheckpointManager(path / "ckpt") as ckpt:
+        start_epoch = 1
+        if ckpt.has_checkpoint():
+            ckpt.restore(state)
+            start_epoch = state.step // steps_per_epoch + 1
+        step = state.step
+        for epoch in range(start_epoch, trainer_config.epoch + 1):
+            batches = train_set.batches(
+                global_batch, seed=trainer_config.seed, epoch=epoch, process_index=index, process_count=count
+            )
+            for batch in prefetch(batches, transform=lambda b: to_device(b, LM_KEYS, device)):
+                with trace_span("speechlm_train_step"):
+                    state, metrics = step_fn(state, batch)
+                step += 1
+                timer.tick()
+                if step % trainer_config.summary_interval == 0:
+                    values = _read_metrics(metrics)
+                    writer.scalars(values, step, prefix="train/")
+                    writer.memory(step, device)
+                    step_time = timer.synced_step_time(step)
+                    if step_time:
+                        writer.scalar("train/tokens_per_sec", global_batch * trainer_config.units_per_sample / step_time, step)
+                        writer.scalar("train/MFU", mfu(flops, step_time, device), step)
+            payload = _save(ckpt, step, state)
+            if rank0:
+                params = payload["modules"]["model"]
+                _export_speechlm(config, model_config, params)
+                _validate_speechlm(config, model_config, params, step, writer, num_special, device)
+            _barrier()
+    writer.close()
+    return {"step": step, "metrics": values}
+
+
+def _export_speechlm(config, model_config: LlamaConfig, params: dict) -> None:
+    """An HF ``LlamaForCausalLM`` directory at ``<model.path>/hf``: the JAX
+    export's ``config.json`` keys, the weights as ``pytorch_model.bin``.
+    ``params`` is the host copy of the LM's state dict (its keys are HF's)."""
+    save_pretrained(
+        Path(config.model.path) / "hf",
+        params,
+        {
+            "model_type": "llama",
+            "architectures": ["LlamaForCausalLM"],
+            "vocab_size": model_config.vocab_size,
+            "hidden_size": model_config.hidden_size,
+            "intermediate_size": model_config.intermediate_size,
+            "num_hidden_layers": model_config.num_hidden_layers,
+            "num_attention_heads": model_config.num_attention_heads,
+            "num_key_value_heads": model_config.num_attention_heads,
+            "rms_norm_eps": model_config.rms_norm_eps,
+            "rope_theta": model_config.rope_theta,
+            "tie_word_embeddings": False,
+            "pad_token_id": model_config.pad_token_id,
+            "bos_token_id": model_config.bos_token_id,
+            "eos_token_id": model_config.eos_token_id,
+            "torch_dtype": "float32",
+        },
+    )
+
+
+def _scoring_lm(model_config: LlamaConfig, params: dict, device: torch.device) -> LlamaLM:
+    """The LM for scoring and generation: the trainer's precision (f32
+    parameters, bf16 compute) with ``"auto"`` attention, so the forward
+    takes K1 on the card (inference, where the kernel keeps its win). Built
+    on the meta device: the checkpoint's tensors are its parameters."""
+    with torch.device("meta"):
+        model = LlamaLM(model_config, attn_implementation="auto")
+    model.load_state_dict(params, assign=True)
+    return model.to(device).eval().requires_grad_(False)
+
+
+def _validate_speechlm(config, model_config, params, step, writer, num_special, device) -> None:
+    """The dev sLM21 score files (lexical and syntactic ``dev.txt``) and,
+    when ``zrc`` runs, its four numbers as ``dev/*`` scalars."""
+    result_dir = Path(config.dataset.result_dir)
+    batch_size = config.dataloader.batch_size_per_device
+    lm = _scoring_lm(model_config, params, device)
+    try:
+        write_scores(lm, config.dataset.swuggy_dev_file, result_dir / "lexical/dev.txt", batch_size, num_special)
+        write_scores(lm, config.dataset.sblimp_dev_file, result_dir / "syntactic/dev.txt", batch_size, num_special)
+    except FileNotFoundError:
+        return
+    if run_zrc(result_dir, "dev"):
+        for name, value in aggregate_slm21_scores(result_dir, "dev").items():
+            writer.scalar(f"dev/{name}", value, step)
+
+
+def _restore_lm(config, device: torch.device):
+    """(LM, special-token count) from the trainer's checkpoint under
+    ``<model.path>/ckpt`` (the latest step), for scoring and generation."""
+    model_config, num_special = _lm_config(config)
+    with CheckpointManager(Path(config.model.path) / "ckpt") as ckpt:
+        state = ckpt.read()
+    return _scoring_lm(model_config, state["modules"]["model"], device), num_special
+
+
+def eval_speechlm(config, device: DeviceLike = None):
+    """The sLM21 test evaluation (``pipeline.speechlm.evaluate``) of the
+    checkpoint's LM, with ``"auto"`` attention: K1 on the card."""
+    lm, _ = _restore_lm(config, resolve_device(device))
+    return evaluate(config, lm)
+
+
 def generate_speechlm(
     config,
     prompt_wav: str,
@@ -336,20 +554,19 @@ def generate_speechlm(
     """Textless continuation: prompt wav -> units -> LM sampling -> units,
     and -> waveform when a resynthesis decoder directory is given.
 
-    The tokenizer comes from ``config.s2u.tokenizer_path``, the encoder from
-    ``config.s2u`` (deduplicating), and the special-token count from the pad,
-    bos and eos ids of ``config.model``. The port has no reader for the JAX
-    trainer's checkpoint yet, so the LM loads from ``<model.path>/hf``, the
-    HF directory that trainer exports, through ``load_lm_from_hf``. Returns
-    the ``continue_speech`` result and writes ``out_wav`` (16 kHz) when
-    asked. Everything runs on ``device``, the card unless ``"cpu"``; the
-    sampling generator is seeded with ``seed`` there.
+    The LM is the trainer's checkpoint under ``<model.path>/ckpt``, restored
+    as ``eval_speechlm`` restores it (``pipeline.speechlm.load_lm_from_hf``
+    reads an HF directory instead); the tokenizer comes from
+    ``config.s2u.tokenizer_path``, the encoder from ``config.s2u``
+    (deduplicating), and the special-token count from the pad, bos and eos
+    ids of ``config.model``. Returns the ``continue_speech`` result and
+    writes ``out_wav`` (16 kHz) when asked. Everything runs on ``device``,
+    the card unless ``"cpu"``; the sampling generator is seeded with
+    ``seed`` there.
     """
     device = resolve_device(device)
     tokenizer = BpeTokenizer.from_file(config.s2u.tokenizer_path)
-    special = {config.model.get(k) for k in ("pad_token_id", "bos_token_id", "eos_token_id")}
-    num_special = len(special - {None})
-    model = load_lm_from_hf(Path(config.model.path) / "hf", device=device)
+    model, num_special = _restore_lm(config, device)
     eos = config.model.get("eos_token_id")
 
     encoder = _make_encoder(config, device=device)

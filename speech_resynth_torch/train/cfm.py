@@ -18,13 +18,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.precision import DEFAULT, Policy
 from ..core.rng import derive_seed
 from ..models.cfm import CFMConfig, ConditionalFlowMatchingModel
 from ..models.composite import init_random_weights
-from .common import TrainState, global_norm, make_optimizer, warmup_linear_decay
+from .common import TrainState, all_reduce_gradients, make_optimizer, warmup_linear_decay
 
 
 def build_model(
@@ -45,17 +46,30 @@ def build_model(
     return model.to(resolve_device(device))
 
 
-def make_train_step(model: ConditionalFlowMatchingModel, optimizer):
+def make_train_step(model: ConditionalFlowMatchingModel, optimizer, data_group=None):
     """``step(state, batch, seed, x0=None, times=None) -> (state, metrics)``:
     one update on a batch of ``input_ids``, ``spectrogram_labels`` and, for
     a duration-predicting model, ``duration_labels``. ``x0`` / ``times``
     replace the noise and flow times drawn from the seed (the tests pass the
-    JAX package's draws)."""
+    JAX package's draws).
+
+    With ``data_group`` (a process group of n data replicas) the batch is
+    this replica's equal share of the global batch, rank-major: the noise,
+    flow times and dropout masks are its rows of the global batch's draws,
+    its loss is its terms over the global counts of valid frames and tokens,
+    and the gradients are summed over the group. So the replicas step on
+    the global batch as one process would, and the metrics are the global
+    batch's."""
     params = optimizer.params
+    n = 1 if data_group is None else dist.get_world_size(data_group)
 
     def step(state: TrainState, batch: dict, seed: int, x0=None, times=None):
         device = batch["spectrogram_labels"].device
-        loss, aux = model.loss(
+        rows = None
+        if n > 1:
+            local = len(batch["spectrogram_labels"])
+            rows = (dist.get_rank(data_group) * local, n * local)
+        terms = model.loss_terms(
             batch["input_ids"],
             batch["spectrogram_labels"],
             batch.get("duration_labels"),
@@ -63,13 +77,22 @@ def make_train_step(model: ConditionalFlowMatchingModel, optimizer):
             x0=x0,
             times=times,
             dropout_seed=derive_seed(seed, 1),
+            rows=rows,
         )
-        grads = torch.autograd.grad(loss, params)
-        grad_norm = global_norm(grads)
+        counts = torch.stack([terms["frames"], terms["tokens"]])
+        if n > 1:
+            dist.all_reduce(counts, group=data_group)
+        frames, tokens = counts.clamp(min=1)
+        mse, duration_loss = terms["sq"] / frames, terms["duration_sq"] / tokens
+        grads = torch.autograd.grad(mse + duration_loss, params)
+        all_reduce_gradients(grads, data_group)
         optimizer.step(grads)
         state.step += 1
-        metrics = {"loss": loss.detach(), "mse": aux["mse"].detach(), "duration_loss": aux["duration_loss"].detach(),
-                   "grad_norm": grad_norm}
+        losses = torch.stack([mse, duration_loss]).detach()
+        if n > 1:
+            dist.all_reduce(losses, group=data_group)
+        mse, duration_loss = losses
+        metrics = {"loss": mse + duration_loss, "mse": mse, "duration_loss": duration_loss, "grad_norm": optimizer.grad_norm}
         return state, metrics
 
     return step
@@ -99,8 +122,10 @@ def make_trainer(
     embedding_table: Optional[np.ndarray] = None,
     policy: Policy = DEFAULT,
     device: DeviceLike = None,
+    data_group=None,
 ):
-    """(model, state, step) for the CFM task on ``device`` (the card unless ``"cpu"``)."""
+    """(model, state, step) for the CFM task on ``device`` (the card unless
+    ``"cpu"``); ``data_group``: see ``make_train_step``."""
     model = build_model(model_config, embedding_table, policy, trainer_config.seed, device)
     schedule = warmup_linear_decay(total_steps, trainer_config.warmup_steps, trainer_config.lr, trainer_config.lr_min)
     optimizer = make_optimizer(
@@ -108,4 +133,4 @@ def make_trainer(
         accum_steps=trainer_config.accum_steps,
     )
     state = TrainState(step=0, modules={"model": model}, optimizers={"model": optimizer})
-    return model, state, make_train_step(model, optimizer)
+    return model, state, make_train_step(model, optimizer, data_group)

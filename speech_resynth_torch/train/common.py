@@ -58,9 +58,34 @@ def epoch_exponential_schedule(lr: float, gamma: float, steps_per_epoch: int) ->
     return schedule
 
 
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(t.float() ** 2)
+    return s.full_tensor() if hasattr(s, "full_tensor") else s  # a sharded DTensor's sum is reduced over its mesh
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32, on the tensors' device."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    """sqrt of the sum of squares of every element, in f32, on the tensors'
+    device; a ``DTensor``'s squares are summed over every shard."""
+    return torch.sqrt(sum(_square_sum(t) for t in tensors))
+
+
+def all_reduce_gradients(grads: Sequence[torch.Tensor], group, mean: bool = False) -> None:
+    """Data parallelism's one reduction: each gradient summed in place over
+    the process group ``group`` (a no-op when None), or averaged with
+    ``mean``. Summed where each process's loss is its share of the global
+    batch's loss (its terms over the global count), averaged where it is a
+    mean over its own equal rows. A ``DTensor`` gradient (tensor
+    parallelism) is reduced through its local shard."""
+    if group is None:
+        return
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    for g in grads:
+        local = g.to_local() if hasattr(g, "to_local") else g
+        dist.all_reduce(local, group=group)
+        if mean:
+            local.div_(n)
 
 
 class Optimizer:
@@ -77,20 +102,28 @@ class Optimizer:
         max_norm: Optional[float],
         weight_decay: float = 0.01,
         accum_steps: int = 1,
+        norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm,
     ):
         self.params: List[nn.Parameter] = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.max_norm = max_norm
+        self.norm = norm  # the global norm (a pipeline stage sums its layers' over the stages)
         self.accum_steps = accum_steps
         self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=(b1, b2), eps=eps, weight_decay=weight_decay)
         self.count = 0  # updates applied: the schedule's step
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
+        # with a clip, the global norm of the last step()'s gradients: what
+        # the trainers report as grad_norm, and the clip's norm when
+        # accum_steps is 1 (without one, as for the GAN, nothing reads it)
+        self.grad_norm: Optional[torch.Tensor] = None
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
         """Take one (micro-)batch's gradients, aligned with ``self.params``;
         True when an update was applied, False inside an accumulation window."""
+        if self.max_norm is not None:
+            self.grad_norm = self.norm(grads)
         if self.accum_steps > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(p) for p in self.params]
@@ -102,7 +135,7 @@ class Optimizer:
                 return False
             grads = self.acc
         if self.max_norm is not None:
-            norm = global_norm(grads)
+            norm = self.grad_norm if self.accum_steps == 1 else self.norm(grads)
             grads = [torch.where(norm < self.max_norm, g, g / norm * self.max_norm) for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g.to(p.dtype)
@@ -135,9 +168,10 @@ def make_optimizer(
     max_norm: Optional[float] = 0.1,
     weight_decay: float = 0.01,
     accum_steps: int = 1,
+    norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm,
 ) -> Optimizer:
     """The JAX ``make_optimizer``'s defaults: the CFM trainer's betas, eps and clip."""
-    return Optimizer(params, schedule, b1, b2, eps, max_norm, weight_decay, accum_steps)
+    return Optimizer(params, schedule, b1, b2, eps, max_norm, weight_decay, accum_steps, norm)
 
 
 @dataclasses.dataclass

@@ -40,7 +40,7 @@ from ..models.hifigan import (
     feature_loss,
     generator_loss,
 )
-from .common import TrainState, epoch_exponential_schedule, make_optimizer
+from .common import TrainState, all_reduce_gradients, epoch_exponential_schedule, make_optimizer
 
 
 @dataclasses.dataclass
@@ -109,10 +109,14 @@ def frozen(*modules: nn.Module):
 
 
 def make_gan_trainer(config: HifiGanConfig, trainer: HifiGanTrainerConfig, policy: Policy = DEFAULT,
-                     device: DeviceLike = None):
+                     device: DeviceLike = None, data_group=None):
     """((gen, mpd, msd), state, step). ``step(state, batch) -> (state,
     metrics)`` on a batch of "mel" (B, T, mels) f32, "wav" (B, S) f32 and
-    "mel_mask" (B, T) bool, metrics as tensors on the device."""
+    "mel_mask" (B, T) bool, metrics as tensors on the device. With
+    ``data_group`` (a process group), each process steps on its rows and the
+    gradients are averaged over the group: every loss is a mean over the
+    rows, and the loop's crops give every row the same length, so that is
+    the gradient of the global batch."""
     gen, mpd, msd = build_models(config, policy, trainer.seed, device)
     schedule = epoch_exponential_schedule(trainer.learning_rate, trainer.lr_decay, trainer.steps_per_epoch)
     kw = dict(b1=trainer.adam_b1, b2=trainer.adam_b2, eps=1e-8, max_norm=None, weight_decay=0.01)
@@ -129,7 +133,9 @@ def make_gan_trainer(config: HifiGanConfig, trainer: HifiGanTrainerConfig, polic
         mpd_r, mpd_g, _, _ = mpd(wav, y_hat)
         msd_r, msd_g, _, _ = msd(wav, y_hat, update_stats=True)
         loss_d = discriminator_loss(mpd_r, mpd_g) + discriminator_loss(msd_r, msd_g)
-        disc_opt.step(torch.autograd.grad(loss_d, disc_opt.params))
+        grads = torch.autograd.grad(loss_d, disc_opt.params)
+        all_reduce_gradients(grads, data_group, mean=True)
+        disc_opt.step(grads)
 
         # generator, against the updated discriminators
         y_g_mel = log_mel_spectrogram(y_g, n_fft=trainer.n_fft, num_mels=trainer.num_mels, hop_size=trainer.hop_size)
@@ -145,7 +151,9 @@ def make_gan_trainer(config: HifiGanConfig, trainer: HifiGanTrainerConfig, polic
             + feature_loss(fr_s, fg_s)
             + trainer.mel_loss_weight * mel_l1
         )
-        gen_opt.step(torch.autograd.grad(loss_g, gen_opt.params))
+        grads = torch.autograd.grad(loss_g, gen_opt.params)
+        all_reduce_gradients(grads, data_group, mean=True)
+        gen_opt.step(grads)
         state.step += 1
         return state, {"loss_disc": loss_d.detach(), "loss_gen": loss_g.detach(), "mel_error": mel_l1.detach()}
 

@@ -747,3 +747,42 @@ def test_tiny_cfm_step_launches_k1_on_card(card, remat):
 @pytest.mark.cuda
 def test_tiny_gan_step_card_matches_cpu(card):
     gan_step_card_vs_cpu()
+
+
+def lm_step_card_vs_cpu(attn_implementation: str, remat: bool = False) -> dict:
+    """One f32 speech-LM step (head dim 64, so K1 takes the card's attention
+    under "auto") on the card and on the CPU from the same seeded weights and
+    padded batch; K1's launches counted (0 under "xla"; 2 a step at depth 2
+    under "auto", 4 with remat)."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.llama import LlamaConfig
+    from speech_resynth_torch.train.speechlm import SpeechLMTrainerConfig, make_speechlm_trainer
+
+    cfg = LlamaConfig(vocab_size=50, hidden_size=128, intermediate_size=96, num_hidden_layers=2, num_attention_heads=2)
+    tcfg = SpeechLMTrainerConfig(warmup_steps=2, lr=1e-3, attn_implementation=attn_implementation, remat=remat)
+    ids = np.random.default_rng(3).integers(2, 50, (4, 48))
+    ids[1, 40:] = 0
+    ids[3, 17:] = 0
+    batch = {"input_ids": ids, "attention_mask": ids != 0, "labels": np.where(ids == 0, -100, ids)}
+    results, launches = {}, {}
+    for device in ("cpu", "cuda"):
+        _, state, step = make_speechlm_trainer(cfg, tcfg, None, 10, FLOAT32, device=device)
+        grads = _recording(state.optimizers["model"])
+        before = TA.flash_attention.launches
+        state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        launches[device] = TA.flash_attention.launches - before
+        params = [p.detach().cpu() for p in state.optimizers["model"].params]
+        results[device] = ({k: float(v) for k, v in metrics.items()}, params, grads)
+    want = 0 if attn_implementation == "xla" else 2 * (2 if remat else 1)
+    assert launches == {"cpu": 0, "cuda": want}, launches
+    return {"attn_implementation": attn_implementation, "remat": remat, "k1_launches": launches["cuda"],
+            **_compare_steps(results, ("loss", "grad_norm"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_implementation,remat", [("xla", False), ("auto", False), ("auto", True), ("pallas", False)])
+def test_tiny_lm_step_card_matches_cpu(card, attn_implementation, remat):
+    """The LM trainer's f32 step on the card equals the CPU's
+    (``_compare_steps``); "xla" never launches K1, "auto" and "pallas" once
+    per layer forward (twice with remat)."""
+    lm_step_card_vs_cpu(attn_implementation, remat)

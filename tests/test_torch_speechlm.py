@@ -40,6 +40,7 @@ from speech_resynth_tpu.pipeline import generate as jax_generate
 from speech_resynth_tpu.pipeline import speechlm as jax_speechlm
 from speech_resynth_tpu.text import units as jax_units
 from speech_resynth_tpu.tokenizers.bpe import BpeTokenizer as JaxBpe
+from speech_resynth_torch.core.checkpoint import CheckpointManager
 from speech_resynth_torch.core.config import config_from_dict
 from speech_resynth_torch.core.precision import FLOAT32
 from speech_resynth_torch.dsp import audio_io
@@ -203,7 +204,7 @@ def test_cache_path_never_launches_the_flash_path(lm_pair, monkeypatch):
     assert calls == []
     with torch.no_grad():
         port(torch.tensor([[5, 6, 7]]))
-    assert calls == [{"mask": None, "causal": True}] * LM_KW["num_hidden_layers"]
+    assert calls == [{"mask": None, "causal": True, "implementation": "auto"}] * LM_KW["num_hidden_layers"]
 
 
 @pytest.mark.parametrize("max_new", [1, 9])
@@ -549,8 +550,9 @@ HUBERT_KW = dict(
 @pytest.mark.filterwarnings("ignore:no (converted weights|k-means centers):UserWarning")
 def test_generate_speechlm_runs_on_the_cpu(lm_pair, tokenizers, decoder_pair, tmp_path, monkeypatch):
     """The whole stage with device="cpu": a tiny deduplicating encoder
-    (seeded random weights), the tokenizer file, the LM's HF directory under
-    <model.path>/hf and the decoder directory; greedy, then seeded sampling."""
+    (seeded random weights), the tokenizer file, the LM as a trainer
+    checkpoint under <model.path>/ckpt and the decoder directory; greedy,
+    then seeded sampling. Greedy continues as the checkpoint's LM does."""
     _, _, variables, _ = lm_pair
     _, jax_tok, _, tok_path = tokenizers
     _, _, dec_path = decoder_pair
@@ -558,11 +560,13 @@ def test_generate_speechlm_runs_on_the_cpu(lm_pair, tokenizers, decoder_pair, tm
         torch_se.DENSE_MODELS, "tiny-hubert", {"config": torch_hubert.HubertConfig(**HUBERT_KW), "output_layer": 2}
     )
     monkeypatch.setenv("SPEECH_RESYNTH_MODELS", str(tmp_path / "no-encoders"))
-    _export_lm(variables["params"], tmp_path / "lm" / "hf")
+    with CheckpointManager(tmp_path / "lm" / "ckpt") as ckpt:  # what train_speechlm saves, no optimizer
+        ckpt.save(3, {"step": 3, "modules": {"model": llama_state_dict(variables["params"])}, "optimizers": {}})
     t = np.arange(16000) / 16000.0
     audio_io.write(tmp_path / "prompt.wav", (0.3 * np.sin(2 * np.pi * 180 * t * (1 + t))).astype(np.float32), 16000)
     config = config_from_dict({
-        "model": {"path": str(tmp_path / "lm"), "pad_token_id": 0, "bos_token_id": None, "eos_token_id": 1},
+        "model": {"path": str(tmp_path / "lm"), **LM_KW, "vocab_size": LM_KW["vocab_size"] - 2, "pad_token_id": 0,
+                  "bos_token_id": None, "eos_token_id": 1},
         "s2u": {"dense_model_name": "tiny-hubert", "quantizer_model_name": "kmeans", "vocab_size": N_UNITS,
                 "tokenizer_path": str(tok_path)},
     })
@@ -572,6 +576,11 @@ def test_generate_speechlm_runs_on_the_cpu(lm_pair, tokenizers, decoder_pair, tm
                                    temperature=0.0, device="cpu")
     assert out_wav.is_file() and audio_io.info(out_wav) == (16000, 1, result["waveform"].size)
     assert result["units"].min() >= 0 and result["units"].max() < N_UNITS
+    lm = TL.LlamaLM(TL.LlamaConfig(**LM_KW))  # the trainer's policy: f32 parameters, bf16 compute
+    lm.load_state_dict(llama_state_dict(variables["params"]))
+    prompt = result["units"][: result["units"].size - result["generated_units"].size]
+    want = torch_generate.generate_unit_continuation(prompt, tokenizers[2], lm.eval(), max_new_tokens=8, temperature=0.0)
+    np.testing.assert_array_equal(result["generated_units"], want)
     sampled = [
         generate_speechlm(config, str(tmp_path / "prompt.wav"), max_new_tokens=8, seed=s, device="cpu")["generated_units"]
         for s in (3, 3)
