@@ -73,9 +73,21 @@
    after epoch 1's checkpoint and resumed against one straight through
    (equal LM hashes), and the loop as one torchrun-style NCCL rank against
    the single process (equal loss and hash);
-15. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
+15. runs the eval stack: ``NativeWhisperASR`` at large-v3's full widths
+   (seeded bf16 weights written as an HF directory through the port's
+   safetensors writer, a synthetic byte-level tokenizer of all 51 866 ids)
+   on 8 waves of 8-10 s and one of 70 s (three windows), 200 new tokens;
+   ``NativeUTMOS`` at full width from a lightning-shaped torch save and from
+   safetensors on 8 waves of 1-10 s; ``pipeline.evaluate`` on the
+   full-width decoder over 32 utterances with the stand-in scorers and with
+   those two; K1 at Whisper's encoder and cross-attention shapes and the
+   UTMOS tower's, greedy decoding and UTMOS in f32 on the card against the
+   CPU; the CFM loop of step 13 also runs its dev sweep (``dev/*``
+   scalars, five clips) once the HiFi-GAN loop has exported a vocoder;
+16. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
    tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
-   trained pair's decoder, the LM loop's scoring and generation), profiles device time by kernel group, prints the
+   CFM loop's dev sweep, the trained pair's decoder, the LM loop's scoring
+   and generation, evaluate's decoder), profiles device time by kernel group, prints the
    script's wall time and one ``{"kernels": [...]}`` line (launches of every path above, the
    shape of every counted launch, and the times of each kernel at every
    timed shape) and, last, the ``{"ok": true, ...}`` line.
@@ -2099,7 +2111,14 @@ def write_train_corpora(torch, np, audio_io, root: Path) -> dict:
         np.save(spec / f"w{i}.npy", log_mel_spectrogram(torch.from_numpy(wave).cuda()).cpu().numpy())
         names.append(f"w{i}")
     (root / "wavs.txt").write_text("\n".join(names) + "\n")
-    (root / "dev.txt").write_text("\n".join(names[:LOOP_DEV]) + "\n")
+    # the dev set: a unit JSON, read by the CFM loop's validation (units, transcripts, the waves as references)
+    # and, through its keys, by the HiFi-GAN loop's
+    dev = {}
+    for name in names[:LOOP_DEV]:
+        n = int(rng.integers(100, 141))
+        dev[name] = {"units": rng.integers(0, CFM_TRAIN["vocab_size"], n).tolist(), "durations": [1] * n,
+                     "transcript": " ".join(rng.choice(WORDS, 6))}
+    (root / "dev.json").write_text(json.dumps(dev))
     return {"spec": spec, "wav": wav_dir}
 
 
@@ -2111,7 +2130,7 @@ def loop_config(root: Path, train_file: str, cfm_epochs: int = 2, **gan) -> dict
     return {
         "common": {"seed": 0},
         "dataset": {"wav_dir": str(root / "wav"), "spectrogram_dir": str(root / "spectrogram"), "ext_audio": ".wav",
-                    "train_file": str(root / train_file), "dev_file": str(root / "dev.txt")},
+                    "train_file": str(root / train_file), "dev_file": str(root / "dev.json")},
         "flow_matching": {**CFM_TRAIN, "path": str(root / "flow_matching"), "epoch": cfm_epochs, "summary_interval": 1,
                           "save_interval_epoch": 1},
         "hifigan": {**GAN_TRAIN, "path": str(root / "hifigan"), "training_epochs": 2, "summary_interval": 1,
@@ -2234,37 +2253,39 @@ def kill_resume_check(torch, root: Path, config: dict) -> dict:
 def train_loops_phase(torch, np, A, M, root: Path) -> dict:
     """The training loops through the config entries on synthetic corpora:
     ``train_flow_matching`` at full width and batch 2 700 (2 steps an epoch)
-    for 2 epochs saving every epoch, then raised to 3 (resumes at step 4,
-    ends at 6); ``train_hifigan`` at full width and batch 64 (2 steps an
-    epoch) for 2 epochs, checkpoint and validation every 2 steps (the
-    validation's generator runs K2 under inference_mode); the kill/resume
-    check; the exported pair through ``load_pretrained`` synthesizing one
-    batch."""
+    for 2 epochs saving every epoch (no vocoder export yet: no dev sweep);
+    ``train_hifigan`` at full width and batch 64 (2 steps an epoch) for 2
+    epochs, checkpoint and validation every 2 steps (the validation's
+    generator runs K2 under inference_mode); ``train_flow_matching`` raised
+    to 3 epochs (resumes at step 4, ends at 6), whose save runs the dev
+    sweep through the exported vocoder (``dev/WER``, ``dev/CER``,
+    ``dev/MOS``, ``dev/MOS (REF)``, five ``hyp/`` clips; K1 and K2); the
+    kill/resume check; the exported pair through ``load_pretrained``
+    synthesizing one batch."""
     from speech_resynth_torch.core.config import config_from_dict
     from speech_resynth_torch.dsp import audio_io
     from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
     from speech_resynth_torch.pipeline import train_loops
-    from speech_resynth_torch.pipeline.data import MelDataset
+    from speech_resynth_torch.pipeline.data import MelDataset, bucket_length
 
     t0 = time.perf_counter()
     write_train_corpora(torch, np, audio_io, root)
     record = {"phase": "train_loops", "corpus_seconds": time.perf_counter() - t0}
 
-    A.flash_attention.launches = 0
-    for epochs in (2, 3):
+    def cfm_run(epochs):
         t1 = time.perf_counter()
         result = train_loops.train_flow_matching(config_from_dict(loop_config(root, "train.json", cfm_epochs=epochs)))
         torch.cuda.synchronize()
         steps = sorted(int(p.name) for p in (root / "flow_matching" / "ckpt").iterdir() if p.name.isdigit())
         record[f"cfm_{epochs}_epochs"] = {"step": result["step"], "checkpoints": steps, "metrics": result["metrics"],
                                           "seconds": time.perf_counter() - t1}
-    cfm_launches = {"flash_attention": A.flash_attention.launches}
-    if record["cfm_2_epochs"]["checkpoints"] != [2, 4] or record["cfm_3_epochs"]["checkpoints"] != [2, 4, 6]:
-        fail(f"train_flow_matching did not checkpoint and resume as expected: {record}")
-    if cfm_launches["flash_attention"] != 6 * 4:
-        fail(f"train_flow_matching launched K1 {cfm_launches['flash_attention']} times in 6 steps")
 
-    dev = MelDataset(str(root / "wav"), str(root / "spectrogram"), str(root / "dev.txt"), GAN_TRAIN["segment_size"], 400, 320, False)
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    cfm_run(2)
+    cfm_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches}
+
+    dev = MelDataset(str(root / "wav"), str(root / "spectrogram"), train_loops._mel_file_list(str(root / "dev.json")),
+                     GAN_TRAIN["segment_size"], 400, 320, False)
     dev_batches = [list(b["mel"].shape[:2]) for b in dev.padded_batches(8, max_utts=32, with_wav=False)]
     validations = 2  # at steps 2 and 4
     M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
@@ -2276,6 +2297,30 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
                          "dev_batches": dev_batches, "validations": validations, "launches": gan_launches}
     if result["step"] != 4 or gan_launches != {"mrf_branch": 9 * len(dev_batches) * validations, "mrf_stage": 0}:
         fail(f"train_hifigan: {record['hifigan']}")
+
+    # the third epoch: its save runs the dev sweep through the vocoder the GAN loop exported
+    from test_torch_cuda import RecordingWriter
+
+    writer = RecordingWriter()
+    real_writer, train_loops.MetricsWriter = train_loops.MetricsWriter, lambda *args, **kwargs: writer
+    A.flash_attention.launches, M.mrf_branch_kernel.launches = cfm_launches["flash_attention"], cfm_launches["mrf_branch"]
+    try:
+        cfm_run(3)
+    finally:
+        train_loops.MetricsWriter = real_writer
+    cfm_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches}
+    # validate_flow_matching: at most 16 dev utterances in batches of 8, each padded to its bucket
+    dev_units = json.loads((root / "dev.json").read_text())
+    sweep = [bucket_length(max(len(dev_units[n]["units"]) for n in list(dev_units)[i : i + 8])) for i in range(0, 16, 8)]
+    dev_scalars = {k: v for k, v in writer.scalars_.items() if k.startswith("dev/")}
+    record["cfm_dev_sweep"] = {"scalars": dev_scalars, "clips": writer.clips, "batches": [[8, f] for f in sweep]}
+    if record["cfm_2_epochs"]["checkpoints"] != [2, 4] or record["cfm_3_epochs"]["checkpoints"] != [2, 4, 6]:
+        fail(f"train_flow_matching did not checkpoint and resume as expected: {record}")
+    if sorted(dev_scalars) != ["dev/CER", "dev/MOS", "dev/MOS (REF)", "dev/WER"] or len(writer.clips) != 5:
+        fail(f"train_flow_matching's dev sweep wrote {sorted(dev_scalars)} and clips {writer.clips}")
+    want = {"flash_attention": 6 * 4 + 4 * 16 * len(sweep), "mrf_branch": 9 * len(sweep)}
+    if cfm_launches != want:
+        fail(f"train_flow_matching launched {cfm_launches} in 6 steps and its dev sweep, expected {want}")
 
     kill = kill_resume_check(torch, root, loop_config(root, "wavs.txt", checkpoint_interval=3, validation_interval=1000))
 
@@ -2294,7 +2339,7 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
         fail(f"the exported pair did not synthesize: {record['export']}")
     print(json.dumps(record))
     return {"cfm": cfm_launches, "hifigan": gan_launches, "export": export_launches, "dev_batches": dev_batches,
-            "validations": validations, "kill_resume": kill}
+            "validations": validations, "kill_resume": kill, "cfm_dev_sweep": record["cfm_dev_sweep"]["batches"]}
 
 
 LM_TRAIN_BATCH, LM_TRAIN_TOKENS = 96, 128  # configs/speechlm/hubert.yaml batch_size_per_device, units_per_sample
@@ -2624,6 +2669,416 @@ def distributed_phase(torch, root: Path, proc, kill: dict) -> dict:
     return record
 
 
+# -- the eval stack: Whisper ASR, UTMOS MOS, evaluate ---------------------------------
+
+WHISPER_BATCH, WHISPER_NEW_TOKENS = 8, 200  # NativeWhisperASR's window batch and token budget
+WHISPER_LONG_SECONDS = 70  # a wave of three 30-s windows (step 20 s)
+WHISPER_PROFILE_TOKENS = 20  # the timed and the profiled window batch's tokens (~1 100 kernels a step)
+UTMOS_WAVES = 8
+EVAL_UTTS = 32  # configs/resynth/mhubert-expresso-2000.yaml flow_matching_with_hifigan.batch_size: one decoder batch
+# a 10-s utterance's transcript is ~30-60 tokens; random weights never give eos, so evaluate's
+# native ASR stops at this cap instead
+EVAL_NEW_TOKENS = 64
+EVAL_PROFILE_UTTS, EVAL_PROFILE_TOKENS = 8, 10
+WORDS = ("the", "cat", "sat", "on", "a", "mat", "in", "nineteen", "eighty", "four", "we", "met", "hello", "world", "speech")
+
+
+def init_on_card(torch, module, seed: int) -> None:
+    """Seeded random weights drawn on the card by the rules of
+    ``models.composite.init_random_weights`` (zero biases, unit norm
+    weights, N(0, 1/fan_in) weights), Whisper's encoder positions its
+    sinusoid table: large-v3's 1.5 B parameters in seconds."""
+    from speech_resynth_torch.models.whisper import sinusoids
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name == "model.encoder.embed_positions.weight":
+                p.copy_(sinusoids(*p.shape))
+            else:
+                fan_in = p[0].numel() if p.ndim > 1 else 1
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") / math.sqrt(fan_in))
+
+
+def write_whisper_dir(torch, path: Path) -> dict:
+    """A large-v3-shaped HF directory: seeded bf16 weights at the full widths
+    (``core.safetensors.save_file``), ``config.json``,
+    ``generation_config.json`` with the forced ids (English, transcribe, no
+    timestamps) and a synthetic byte-level tokenizer of all 51 866 ids."""
+    import dataclasses
+
+    from speech_resynth_torch.core.precision import BF16_INFERENCE
+    from speech_resynth_torch.core.safetensors import save_file
+    from speech_resynth_torch.models.whisper import WhisperConfig, WhisperForASR
+    from test_torch_cuda import write_whisper_tokenizer
+
+    path.mkdir(parents=True)
+    languages = ["en"] + [f"x{i:02d}" for i in range(99)]
+    ids = write_whisper_tokenizer(path, 50257, languages=languages, timestamps=1501)["added"]
+    cfg = WhisperConfig()
+    if len(ids) + 50257 != cfg.vocab_size or ids["<|startoftranscript|>"] != cfg.decoder_start_token_id:
+        fail(f"the synthetic tokenizer's ids are not large-v3's: {len(ids) + 50257}")
+    with torch.device("cuda"):
+        model = WhisperForASR(cfg, BF16_INFERENCE)
+    init_on_card(torch, model, 11)
+    save_file(model.state_dict(), path / "model.safetensors")
+    del model
+    (path / "config.json").write_text(json.dumps({"model_type": "whisper", **dataclasses.asdict(cfg)}))
+    forced = [[1, ids["<|en|>"]], [2, ids["<|transcribe|>"]], [3, ids["<|notimestamps|>"]]]
+    (path / "generation_config.json").write_text(json.dumps({"forced_decoder_ids": forced}))
+    return ids
+
+
+def counting_decode_steps(model) -> list:
+    """Each ``decode_step`` call's batch, recorded (no launch of its own)."""
+    calls = []
+    real = model.decode_step
+
+    def step(input_ids, cross_kv, cache, cache_index):
+        calls.append((input_ids.shape[0], input_ids.shape[1]))
+        return real(input_ids, cross_kv, cache, cache_index)
+
+    model.decode_step = step
+    return calls
+
+
+def whisper_launch_shapes(calls: list, layers: int, heads: int, keys: int) -> list:
+    """(shape, launches) of K1 for the decode-step calls of ``greedy_decode``
+    runs: per run the encoder (a launch a layer), then the prefill's and
+    every step's cross-attention (a launch a layer); shapes of a
+    cross-attention are (B, H, q_len, k_len, d)."""
+    out = []
+    for b, n in calls:
+        if n > 1:  # a prefill starts a run: its window batch's encoder ran just before
+            out.append(([b, heads, keys, 64], layers))
+        out.append(([b, heads, n, keys, 64], layers))
+    return out
+
+
+def cross_attention_shape(torch, F, A, gen, path: str, B: int, H: int, Nq: int, Nk: int, D: int = 64) -> dict:
+    """K1 against attention_reference at a cross-attention shape (q_len !=
+    k_len, no mask, not causal), bf16 and f32; times in bf16 beside SDPA."""
+    dev = "cuda"
+    errs = {}
+    for name in DTYPES:
+        dtype = getattr(torch, name)
+        q = torch.randn(B, H, Nq, D, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, H, Nk, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+        got = A.flash_attention(q, k, v, None, False)
+        want = A.attention_reference(q, k, v, None, False)
+        torch.cuda.synchronize()
+        errs[name] = max_err(torch, got, want)
+        if not torch.isfinite(got.float()).all() or errs[name] > ATT_TOL[name]:
+            fail(f"flash_attention {path} {[B, H, Nq, Nk, D]} {name}: max abs err {errs[name]} > {ATT_TOL[name]}")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    record = {
+        "path": path, "shape": [B, H, Nq, Nk, D], "dtype": "bfloat16", "key_lengths": None, "causal": False,
+        "live_tile_share": A.live_tile_share(None, B, Nq, Nk, False, A.QUERY_BLOCK),
+        "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"], "tol": ATT_TOL,
+        **timed(
+            torch,
+            lambda: A.flash_attention(q, k, v, None, False),
+            lambda: A.attention_reference(q, k, v, None, False),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            nbytes=2 * B * H * Nq * D * 2 + 2 * B * H * Nk * D * 2,  # q and o, K and V read once
+            flops=4.0 * B * H * Nq * Nk * D,
+            peak_flops=PEAK_BF16_FLOPS,
+            graph=True,
+        ),
+    }
+    print(json.dumps({"phase": "flash_attention", **record}))
+    return record
+
+
+def whisper_phase(torch, np, F, A, root: Path):
+    """``NativeWhisperASR`` at large-v3's full widths (32 + 32 layers, d_model
+    1 280, 20 heads of 64, 128 mels, vocab 51 866; seeded bf16 weights) from
+    an HF directory written through the port's safetensors writer:
+    transcribes 8 waves of 8-10 s and one of 70 s (three windows) with 200
+    new tokens (random weights never give eos), windows batched 8 at a time.
+    Checks the long wave's windows, the transcripts, the launches; then
+    ``greedy_decode`` in f32 on the card against the CPU at a small width, K1
+    at the encoder's and the cross-attention's shapes, the encoder's ms per
+    window batch and the ms per decoded token, and a profile of one window
+    batch. Returns the scorer (the evaluate phase reuses it), the launches
+    and their shapes."""
+    from speech_resynth_torch.dsp.mel import whisper_log_mel
+    from speech_resynth_torch.models.whisper import greedy_decode
+    from speech_resynth_torch.pipeline.scorers import NativeWhisperASR
+    from test_torch_cuda import whisper_decode_card_vs_cpu
+
+    t0 = time.perf_counter()
+    ids = write_whisper_dir(torch, root / "whisper-large-v3")
+    t_write = time.perf_counter() - t0
+    asr = NativeWhisperASR(root / "whisper-large-v3", max_new_tokens=WHISPER_NEW_TOKENS, batch_size=WHISPER_BATCH)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0 - t_write
+    cfg = asr.config
+    rng = np.random.default_rng(61)
+    waves = speechlike_waves(np, rng, 8) + speechlike_waves(np, rng, 1, seconds=(WHISPER_LONG_SECONDS, WHISPER_LONG_SECONDS))
+    starts = asr._window_starts(len(waves[-1]), SAMPLE_RATE)
+    if starts != [0, 20 * SAMPLE_RATE, 40 * SAMPLE_RATE] or asr._window_starts(len(waves[0]), SAMPLE_RATE) != [0]:
+        fail(f"the 70-s wave's windows start at {starts}")
+    asr.max_new_tokens = 2
+    asr.transcribe(waves[:WHISPER_BATCH])  # warm-up: allocator, cuBLAS plans
+    asr.max_new_tokens = WHISPER_NEW_TOKENS
+    calls = asr.decode_calls = counting_decode_steps(asr.model)
+    A.flash_attention.launches = 0
+    t1 = time.perf_counter()
+    texts = asr.transcribe(waves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"flash_attention": A.flash_attention.launches}
+    shapes = whisper_launch_shapes(calls, cfg.decoder_layers, cfg.decoder_attention_heads, cfg.max_source_positions)
+    if launches["flash_attention"] != sum(n for _, n in shapes):
+        fail(f"whisper: {launches} K1 launches, {sum(n for _, n in shapes)} from its {len(calls)} decode steps")
+    windows = 8 + len(starts)
+    batches = [min(WHISPER_BATCH, windows - b) for b in range(0, windows, WHISPER_BATCH)]
+    if [b for b, n in calls if n > 1] != batches or len(calls) != len(batches) * WHISPER_NEW_TOKENS:
+        fail(f"whisper: decode steps {calls[:3]}... ({len(calls)}) for window batches {batches}")
+    if len(texts) != len(waves) or not all(isinstance(t, str) for t in texts):
+        fail(f"whisper: transcripts {texts!r}")
+    audio_s = sum(len(w) for w in waves) / SAMPLE_RATE
+    record = {"phase": "whisper", "widths": {"d_model": cfg.d_model, "layers": [cfg.encoder_layers, cfg.decoder_layers],
+                                             "heads": cfg.encoder_attention_heads, "mels": cfg.num_mel_bins, "vocab": cfg.vocab_size},
+              "write_seconds": t_write, "load_seconds": t_load, "waves": len(waves), "windows": windows, "window_batches": batches,
+              "long_wave_window_starts_s": [s / SAMPLE_RATE for s in starts], "new_tokens": WHISPER_NEW_TOKENS,
+              "prompt_ids": asr.prompt_ids, "wall_seconds": wall, "audio_seconds": audio_s, "realtime_factor": audio_s / wall,
+              "launches": launches, "transcript_chars": [len(t) for t in texts], "transcript_0": texts[0][:80]}
+
+    # the encoder's ms per window batch and the ms per decoded token (over WHISPER_PROFILE_TOKENS), CUDA events on a warm batch
+    chunk = 30 * SAMPLE_RATE
+    batch = np.zeros((WHISPER_BATCH, chunk), np.float32)
+    for j, w in enumerate(waves[:WHISPER_BATCH]):
+        batch[j, : min(len(w), chunk)] = w[:chunk]
+    mel = whisper_log_mel(torch.from_numpy(batch).cuda(), num_mels=cfg.num_mel_bins)
+    prompt = torch.tensor([asr.prompt_ids] * WHISPER_BATCH)
+    with torch.inference_mode():
+        enc_ms = time_ms(torch, lambda: asr.model.encode(mel), 3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    greedy_decode(asr.model, mel, WHISPER_PROFILE_TOKENS, prompt)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end)
+    record.update({"encoder_ms_per_window_batch": enc_ms, f"greedy_ms_per_window_batch_{WHISPER_PROFILE_TOKENS}_tokens": decode_ms,
+                   "ms_per_decoded_token": (decode_ms - enc_ms) / WHISPER_PROFILE_TOKENS})
+    record["card_vs_cpu_f32"] = whisper_decode_card_vs_cpu()
+    print(json.dumps(record))
+    profile_phase(torch, f"whisper window batch ({WHISPER_BATCH} windows, {WHISPER_PROFILE_TOKENS} tokens)",
+                  lambda: greedy_decode(asr.model, mel, WHISPER_PROFILE_TOKENS, prompt), 1)
+
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    held = []
+    for b in sorted(set(batches), reverse=True):
+        held.append(attention_shape(torch, F, A, gen, "whisper encoder", b, cfg.encoder_attention_heads, cfg.max_source_positions,
+                                    64, cfg.max_source_positions, cfg.max_source_positions, masked=False))
+        for q_len in (len(asr.prompt_ids), 1):
+            held.append(cross_attention_shape(torch, F, A, gen, f"whisper cross-attention (q_len {q_len})", b,
+                                              cfg.decoder_attention_heads, q_len, cfg.max_source_positions))
+    return asr, launches, shapes, held, record
+
+
+def lightning_utmos_state_dict(torch, sd: dict) -> dict:
+    """The port's UTMOS state_dict in the published lightning layout
+    (fairseq names, the positional conv as weight norm's g and v): the
+    inverse of ``models.convert.utmos_state_dict_from_lightning``."""
+    from speech_resynth_torch.models.convert import FAIRSEQ_LAYER_KEYS, POS_CONV
+
+    ssl_prefix, out = "model.feature_extractors.0.ssl_model.", {}
+    renames = {"feature_projection.layer_norm": "layer_norm", "feature_projection.projection": "post_extract_proj",
+               "encoder.layer_norm": "encoder.layer_norm"}
+    for key, value in sd.items():
+        if not key.startswith("ssl."):
+            continue
+        k = key[len("ssl."):]
+        if k.startswith(POS_CONV):
+            if k.endswith("weight"):
+                out[ssl_prefix + "encoder.pos_conv.0.weight_g"] = value.norm(dim=(0, 1), keepdim=True)
+                out[ssl_prefix + "encoder.pos_conv.0.weight_v"] = value
+            else:
+                out[ssl_prefix + "encoder.pos_conv.0.bias"] = value
+            continue
+        if k.startswith("feature_extractor.conv_layers."):
+            k = k.replace(".conv.weight", ".0.weight").replace(".layer_norm.", ".2.")
+        elif k.startswith("encoder.layers."):
+            for theirs, ours in FAIRSEQ_LAYER_KEYS:
+                k = k.replace(f".{ours}.", f".{theirs}.")
+        else:
+            k = next(theirs + k[len(ours):] for ours, theirs in renames.items() if k.startswith(ours + "."))
+        out[ssl_prefix + k] = value
+    out.update({f"model.output_layers.0.decoder_rnn.{k[len('decoder_rnn.'):]}": v for k, v in sd.items() if k.startswith("decoder_rnn.")})
+    out["model.feature_extractors.1.embedding.weight"] = sd["domain_embedding.weight"]
+    out["model.output_layers.0.judge_embedding.weight"] = sd["judge_embedding.weight"]
+    for ours, theirs in (("proj_in", "net.0"), ("proj_out", "net.3")):
+        for part in ("weight", "bias"):
+            out[f"model.output_layers.1.{theirs}.{part}"] = sd[f"{ours}.{part}"]
+    return out
+
+
+def utmos_phase(torch, np, F, A, root: Path):
+    """``NativeUTMOS`` at full width (wav2vec2-base 12 x 768, 3 280 judges,
+    LSTM 512, head 2 048; seeded weights) from a lightning-shaped torch save
+    and from the same tensors as safetensors: 8 waves of 1-10 s scored as
+    one padded batch by each, then each wave alone (bf16 tower). Checks the
+    two files agree, the padded batch against the waves alone, and in f32
+    the padded batch against the waves alone on the card and the card
+    against the CPU; K1 at the tower's masked shape held and timed."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.core.safetensors import save_file
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.utmos import UTMOSConfig, UTMOSPredictor
+    from speech_resynth_torch.pipeline.scorers import BUCKET_SAMPLES, NativeUTMOS
+    from test_torch_cuda import utmos_card_vs_cpu
+
+    model = UTMOSPredictor(UTMOSConfig(), FLOAT32)
+    init_random_weights(model, torch.Generator().manual_seed(21))
+    lightning = lightning_utmos_state_dict(torch, model.state_dict())
+    del model
+    ckpt, st = root / "utmos.ckpt", root / "utmos.safetensors"
+    torch.save({"state_dict": lightning}, ckpt)
+    save_file(lightning, st)
+    rng = np.random.default_rng(63)
+    waves = speechlike_waves(np, rng, UTMOS_WAVES, seconds=(1, 10))
+    cfg = UTMOSConfig()
+    scorers = {"ckpt": NativeUTMOS(ckpt), "safetensors": NativeUTMOS(st)}
+    scorers["ckpt"].score_batch(waves)  # warm-up
+    A.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    batch = {name: s.score_batch(waves) for name, s in scorers.items()}
+    wall = time.perf_counter() - t0
+    alone = [scorers["ckpt"].score(w) for w in waves]
+    torch.cuda.synchronize()
+    launches = {"flash_attention": A.flash_attention.launches}
+    bucket = -(-max(map(len, waves)) // BUCKET_SAMPLES) * BUCKET_SAMPLES
+    frames = [int(cfg.ssl.num_frames(len(w))) for w in waves]
+    layers, heads = cfg.ssl.num_hidden_layers, cfg.ssl.num_attention_heads
+    shapes = [([UTMOS_WAVES, heads, int(cfg.ssl.num_frames(bucket)), 64], 2 * layers)]
+    shapes += [([1, heads, int(cfg.ssl.num_frames(max(BUCKET_SAMPLES, -(-len(w) // BUCKET_SAMPLES) * BUCKET_SAMPLES))), 64], layers)
+               for w in waves]
+    if launches["flash_attention"] != sum(n for _, n in shapes):
+        fail(f"utmos: {launches} K1 launches, expected {sum(n for _, n in shapes)}")
+    files_err = max(abs(a - b) for a, b in zip(batch["ckpt"], batch["safetensors"]))
+    alone_err = max(abs(a - b) for a, b in zip(batch["ckpt"], alone))
+    f32 = NativeUTMOS(st, policy=FLOAT32)
+    f32_batch, f32_alone = f32.score_batch(waves), [f32.score(w) for w in waves]
+    f32_cpu = NativeUTMOS(st, policy=FLOAT32, device="cpu").score_batch(waves[-2:])
+    tol = {"files": 1e-6, "padded_vs_alone_bf16": 5e-2, "padded_vs_alone_f32": 1e-3, "card_vs_cpu_f32": 1e-3}
+    record = {"phase": "utmos", "waves": UTMOS_WAVES, "seconds": [len(w) / SAMPLE_RATE for w in waves], "frames": frames,
+              "bucket_samples": bucket, "mos": batch["ckpt"], "score_batch_seconds_both_files": wall, "launches": launches,
+              "files_max_abs_err": files_err, "padded_vs_alone_max_abs_err": alone_err,
+              "f32_padded_vs_alone_max_abs_err": max(abs(a - b) for a, b in zip(f32_batch, f32_alone)),
+              "f32_card_vs_cpu_max_abs_err": max(abs(a - b) for a, b in zip(f32_batch[-2:], f32_cpu)), "tol": tol,
+              "tiny_card_vs_cpu": utmos_card_vs_cpu()}
+    print(json.dumps(record))
+    if (files_err > tol["files"] or alone_err > tol["padded_vs_alone_bf16"] or record["f32_padded_vs_alone_max_abs_err"] > tol["padded_vs_alone_f32"]
+            or record["f32_card_vs_cpu_max_abs_err"] > tol["card_vs_cpu_f32"] or not all(math.isfinite(m) for m in batch["ckpt"])):
+        fail(f"utmos: {record}")
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    T = int(cfg.ssl.num_frames(bucket))
+    held = attention_shape(torch, F, A, gen, "utmos tower", UTMOS_WAVES, heads, T, 64, 1, T,
+                           lengths=torch.tensor(frames, device="cuda"))
+    return scorers["ckpt"], launches, shapes, held, record
+
+
+def write_eval_set(np, audio_io, root: Path, n: int, seed: int) -> Path:
+    """``n`` utterances of 400-500 units (8-10 s at 50 Hz) with transcripts
+    and 8-10 s reference waves: a unit JSON and a wav directory."""
+    rng = np.random.default_rng(seed)
+    (root / "wav").mkdir(parents=True, exist_ok=True)
+    units = {}
+    for i, wave in enumerate(speechlike_waves(np, rng, n)):
+        k = int(rng.integers(400, 501))
+        units[f"e{i}"] = {"units": rng.integers(0, ENCODER[2], k).tolist(), "durations": [1] * k,
+                          "transcript": " ".join(rng.choice(WORDS, int(rng.integers(4, 12))))}
+        audio_io.write(root / "wav" / f"e{i}.wav", wave, SAMPLE_RATE)
+    path = root / f"test_{n}.json"
+    path.write_text(json.dumps(units))
+    return path
+
+
+def evaluate_phase(torch, np, A, M, root: Path, asr, mos) -> dict:
+    """``pipeline.evaluate`` on the full-width decoder of
+    configs/resynth/mhubert-expresso-2000.yaml (random weights, bf16) over
+    32 utterances with reference waves, one decoder batch of 32: once with
+    ``NullASR`` / ``EnergyMOS`` and once with the native Whisper and UTMOS
+    of the phases above (Whisper stopping at ``EVAL_NEW_TOKENS``). Checks
+    the six rows, the scorer column and the CSV; counts the launches of each
+    run; profiles an 8-utterance run with the native scorers at 10 new
+    tokens."""
+    from speech_resynth_torch.core.config import config_from_dict
+    from speech_resynth_torch.core.precision import BF16_INFERENCE
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.pipeline.data import UnitDataset
+    from speech_resynth_torch.pipeline.evaluate import ROWS, evaluate, read_table
+    from speech_resynth_torch.pipeline.scorers import EnergyMOS, NullASR
+
+    decoder = ConditionalFlowMatchingWithHifiGan.from_config(
+        CFMConfig(vocab_size=ENCODER[2]), HifiGanConfig(), BF16_INFERENCE, generator=torch.Generator().manual_seed(0), device="cuda")
+    test_file = write_eval_set(np, audio_io, root, EVAL_UTTS, 65)
+
+    def config(name, file):
+        return config_from_dict({
+            "dataset": {"test_file": str(file), "wav_dir": str(root / "wav"), "ext_audio": ".wav"},
+            "flow_matching": {"dt": 0.0625, "truncation_value": 1.0},
+            "flow_matching_with_hifigan": {"batch_size": EVAL_UTTS},
+            "eval": {"result_path": str(root / name / "score.csv")},
+        })
+
+    frames = [b["input_ids"].shape[1] for b in UnitDataset(str(test_file)).batches(EVAL_UTTS, shuffle=False, drop_last=False)]
+    out = {"frames": frames, "runs": {}}
+    evaluate(config("warm", test_file), decoder=decoder, asr=NullASR(), mos=EnergyMOS())  # warm-up: allocator, cuDNN plans
+    calls = asr.decode_calls
+    mos_lengths = []  # the sample count of every wave the native MOS scores
+    score_batch = mos.score_batch
+    mos.score_batch = lambda wavs: mos_lengths.extend(len(w) for w in wavs) or score_batch(wavs)
+    asr.max_new_tokens = EVAL_NEW_TOKENS
+    for name, scorers in (("stand_in", (NullASR(), EnergyMOS())), ("native", (asr, mos))):
+        calls.clear()
+        mos_lengths.clear()
+        A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+        t0 = time.perf_counter()
+        rows = evaluate(config(name, test_file), decoder=decoder, asr=scorers[0], mos=scorers[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                    "mrf_stage": M.mrf_stage_kernel.launches}
+        whisper = whisper_launch_shapes(calls, asr.config.decoder_layers, asr.config.decoder_attention_heads,
+                                        asr.config.max_source_positions)
+        ssl = mos.config.ssl
+        utmos = [([1, ssl.num_attention_heads, int(ssl.num_frames(max(1, -(-n // 16000)) * 16000)), 64], ssl.num_hidden_layers)
+                 for n in mos_lengths]
+        want = {"flash_attention": 64 * len(frames) + sum(n for _, n in whisper + utmos), "mrf_branch": 9 * len(frames),
+                "mrf_stage": 0}
+        scorer_names = [type(scorers[1 if r.startswith("MOS") else 0]).__name__ for r in ROWS]
+        from_csv = read_table(root / name / "score.csv")
+        run = {"rows": rows, "wall_seconds": wall, "launches": launches, "whisper_decode_steps": len(calls),
+               "whisper_window_batches": [b for b, n in calls if n > 1]}
+        out["runs"][name] = {**run, "whisper_shapes": whisper, "utmos_shapes": utmos}
+        print(json.dumps({"phase": "evaluate", "scorers": name, **run}))
+        if (launches != want or len(mos_lengths) != (2 * EVAL_UTTS if name == "native" else 0) or [r[0] for r in rows] != list(ROWS) or [r[2] for r in rows] != scorer_names
+                or from_csv != rows or not all(math.isfinite(r[1]) for r in rows)):
+            fail(f"evaluate ({name}): launches {launches} (expected {want}), rows {rows}, CSV {from_csv}")
+        if name == "stand_in" and (rows[0][1] != 1.0 or rows[1][1] != 1.0):
+            fail(f"evaluate with NullASR: WER / CER {rows[:2]} != 1")
+    small = write_eval_set(np, audio_io, root / "small", EVAL_PROFILE_UTTS, 66)
+    asr.max_new_tokens = EVAL_PROFILE_TOKENS
+    try:
+        profile_phase(torch, f"evaluate ({EVAL_PROFILE_UTTS} utterances, native scorers, {EVAL_PROFILE_TOKENS} new tokens)",
+                      lambda: evaluate(config("profile", small), decoder=decoder, asr=asr, mos=mos), 1)
+    finally:
+        asr.max_new_tokens = WHISPER_NEW_TOKENS
+        mos.score_batch = score_batch
+    return out
+
+
 KERNEL_GROUPS = (
     ("flash_attention (K1)", ("flash_fwd",)),
     ("codebook_assign (K4)", ("codebook_assign", "unpack_ids")),
@@ -2779,6 +3234,16 @@ def main() -> int:
         lm_loop = speechlm_loop_phase(torch, np, A, C, M, Path(loop_tmp), Path(lm_tmp.name))
     lap("speechlm_loop_phase (and distributed_phase)")
     lm_tmp.cleanup()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_tmp:
+        asr, whisper, whisper_shapes, k1_whisper, _ = whisper_phase(torch, np, F, A, Path(eval_tmp))
+        k1.extend(k1_whisper)
+        lap("whisper_phase")
+        mos, utmos, utmos_shapes, k1_utmos, _ = utmos_phase(torch, np, F, A, Path(eval_tmp))
+        k1.append(k1_utmos)
+        lap("utmos_phase")
+        evaluation = evaluate_phase(torch, np, A, M, Path(eval_tmp), asr, mos)
+        del asr, mos
+    lap("evaluate_phase")
     torch.cuda.synchronize()
 
     # data-dependent shapes, held after their runs: the duration config's 64-multiple
@@ -2811,6 +3276,12 @@ def main() -> int:
     # K2 at the HiFi-GAN validation's dev batches, K1 and K2 at the exported pair's synthesis batch
     for b, frames in sorted(set(map(tuple, loops["dev_batches"]))):
         k2.append(mrf_path(torch, F, M, gen, voc_cfg, "hifigan validation", frames, b))
+    for b, frames in sorted(set(map(tuple, loops["cfm_dev_sweep"]))):  # the CFM loop's dev sweep (bf16 compute)
+        k1.append(attention_shape(torch, F, A, gen, "cfm loop dev sweep decoder", b, 2, frames, 128, 100, min(140, frames)))
+        k2.append(mrf_path(torch, F, M, gen, voc_cfg, "cfm loop dev sweep decoder", frames, b))
+    for frames in sorted(set(evaluation["frames"])):  # evaluate's decoder batch
+        k1.append(attention_shape(torch, F, A, gen, "evaluate decoder", EVAL_UTTS, 2, frames, 128, 400, min(500, frames)))
+        k2.append(mrf_path(torch, F, M, gen, voc_cfg, "evaluate decoder", frames, EVAL_UTTS))
     lo = EXPORT_UNITS * 3 // 4
     k1.append(attention_shape(torch, F, A, gen, "trained pair decoder", EXPORT_BATCH, 2, EXPORT_UNITS, 128, lo, EXPORT_UNITS))
     k2.append(mrf_path(torch, F, M, gen, voc_cfg, "trained pair decoder", EXPORT_UNITS, EXPORT_BATCH))
@@ -2836,6 +3307,7 @@ def main() -> int:
         "train_speechlm": train_lm["launches"], "speechlm_loop_validation": lm_loop["validation"],
         "speechlm_loop_eval": lm_loop["eval"],
         **{f"speechlm_loop_generate_{k}": v for k, v in lm_loop["generate"].items()},
+        "whisper": whisper, "utmos": utmos, **{f"evaluate_{k}": v["launches"] for k, v in evaluation["runs"].items()},
     }
     shapes: dict = {}
 
@@ -2886,7 +3358,9 @@ def main() -> int:
         encoder_batch("preprocess_tokenize", RESYNTH_FRAMES, batch=b)
     train_shape = [CFM_TRAIN["batch_size"], 2, CFM_TRAIN["frames_per_seg"], 128]
     add("flash_attention", "train_cfm", train_shape, train_cfm["launches"]["flash_attention"])  # 4 a step, 8 with remat
-    add("flash_attention", "train_loops_cfm", train_shape, loops["cfm"]["flash_attention"])
+    add("flash_attention", "train_loops_cfm", train_shape, 6 * 4)  # 6 steps
+    for b, frames in loops["cfm_dev_sweep"]:  # its dev sweep
+        decoder_batch("train_loops_cfm", frames, batch=b)
     for _ in range(loops["validations"]):
         for b, frames in loops["dev_batches"]:
             vocoder_call("train_loops_hifigan", frames, b, False)
@@ -2900,6 +3374,15 @@ def main() -> int:
     for label in lm_loop["generate"]:
         encoder_batch(f"speechlm_loop_generate_{label}", ENC_FRAMES, batch=1, layers=6, centers=CONT_ENCODER[2])
     decoder_batch("speechlm_loop_generate_speech", bound, batch=1)
+    for shape, n in whisper_shapes:
+        add("flash_attention", "whisper", shape, n)
+    for shape, n in utmos_shapes:
+        add("flash_attention", "utmos", shape, n)
+    for label, run in evaluation["runs"].items():
+        for frames in evaluation["frames"]:
+            decoder_batch(f"evaluate_{label}", frames, batch=EVAL_UTTS)
+        for shape, n in run["whisper_shapes"] + run["utmos_shapes"]:
+            add("flash_attention", f"evaluate_{label}", shape, n)
     for kernel, per_path in shapes.items():
         for path, counts in per_path.items():
             if sum(counts.values()) != by_path[path][kernel]:

@@ -98,7 +98,7 @@ def ode_num_steps(dt: float) -> int:
 
 
 class ConditionalFlowMatchingModel(nn.Module):
-    def __init__(self, config: CFMConfig, policy: Policy = DEFAULT):
+    def __init__(self, config: CFMConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         cfg = config
         self.config = config
@@ -110,7 +110,7 @@ class ConditionalFlowMatchingModel(nn.Module):
         self.conv_embed = ConvPositionEmbed(
             cfg.hidden_size, cfg.conv_pos_embed_kernel_size, cfg.conv_pos_embed_groups, policy
         )
-        self.transformer = Transformer(cfg.transformer(), policy)
+        self.transformer = Transformer(cfg.transformer(), policy, attn_implementation)
         self.to_pred = nn.Linear(cfg.hidden_size, cfg.dim_in, bias=False, dtype=pd)
         if cfg.predict_duration:
             self.duration_predictor = DurationPredictor(cfg.dim_cond_emb, policy)

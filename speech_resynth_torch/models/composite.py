@@ -28,6 +28,7 @@ from ..dsp.mulaw import mulaw_encode
 from .cfm import CFMConfig, ConditionalFlowMatchingModel
 from .convert import load_checkpoint
 from .hifigan import HifiGanConfig, HifiGanGenerator
+from .hub import resolve_pretrained_dir
 
 
 @torch.no_grad()
@@ -57,6 +58,18 @@ def _to_device(module: nn.Module, device: torch.device) -> nn.Module:
 
 def _cfm_config(m: dict) -> CFMConfig:
     return CFMConfig(**{k: m[k] for k in dataclasses.asdict(CFMConfig()) if k in m})
+
+
+def load_vocoder(voc_dir: Path, policy: Policy) -> HifiGanGenerator:
+    """The generator a trainer exported to ``voc_dir`` (``config.json`` holding
+    the HiFi-GAN config, and weights), on the CPU."""
+    with open(Path(voc_dir) / "config.json") as f:
+        vocoder = HifiGanGenerator(HifiGanConfig.from_dict(json.load(f)), policy)
+    sd = load_checkpoint(Path(voc_dir))
+    for name, identity in (("mean", vocoder.mean), ("scale", vocoder.scale)):
+        sd.setdefault(name, identity)  # a checkpoint without input stats normalizes by identity
+    vocoder.load_state_dict(sd)
+    return vocoder
 
 
 class ConditionalFlowMatchingWithHifiGan:
@@ -90,14 +103,15 @@ class ConditionalFlowMatchingWithHifiGan:
     def from_pretrained(
         cls, model_dir: Union[str, Path], policy: Policy = BF16_INFERENCE, device: DeviceLike = None
     ) -> "ConditionalFlowMatchingWithHifiGan":
-        """Load a local composite checkpoint directory: ``config.json`` with
-        ``model_config`` and ``vocoder_config``, and weights keyed ``model.*``
-        and ``vocoder.*`` (the layout ``save_composite_pretrained`` writes).
-        Parameters take ``policy.param_dtype``; buffers stay f32."""
+        """Load a composite checkpoint directory, local or an ``org/name``
+        hub id in the HF cache (``models.hub.resolve_pretrained_dir``; nothing
+        is downloaded): ``config.json`` with ``model_config`` and
+        ``vocoder_config``, and weights keyed ``model.*`` and ``vocoder.*``
+        (the layout ``models.convert.save_composite_pretrained`` and the JAX
+        package's writer give). Parameters take ``policy.param_dtype``;
+        buffers stay f32."""
         device = resolve_device(device)
-        model_dir = Path(model_dir)
-        if not model_dir.is_dir():
-            raise FileNotFoundError(f"{model_dir} is not a local checkpoint directory")
+        model_dir = resolve_pretrained_dir(model_dir)
         with open(model_dir / "config.json") as f:
             cfg = json.load(f)
         model_config = _cfm_config(cfg["model_config"])
@@ -128,16 +142,9 @@ class ConditionalFlowMatchingWithHifiGan:
                 raise FileNotFoundError(f"{d} is not a local checkpoint directory")
         with open(model_dir / "config.json") as f:
             model_config = _cfm_config(json.load(f))
-        with open(voc_dir / "config.json") as f:
-            vocoder_config = HifiGanConfig.from_dict(json.load(f))
         model = ConditionalFlowMatchingModel(model_config, policy)
         model.load_state_dict(load_checkpoint(model_dir))
-        vocoder = HifiGanGenerator(vocoder_config, policy)
-        voc_sd = load_checkpoint(voc_dir)
-        for name, identity in (("mean", vocoder.mean), ("scale", vocoder.scale)):
-            voc_sd.setdefault(name, identity)  # a checkpoint without input stats normalizes by identity
-        vocoder.load_state_dict(voc_sd)
-        return cls(model, vocoder, device)
+        return cls(model, load_vocoder(voc_dir, policy), device)
 
     # -- inference --------------------------------------------------------------
 

@@ -11,7 +11,11 @@ names are the HF keys, or into the training discriminators
 the spectral norm's ``u`` kept as they are). ``hubert_state_dict_from_hf`` and
 ``llama_state_dict_from_hf`` read HF ``HubertModel`` and ``LlamaForCausalLM``
 state_dicts (the port's copies of speech_resynth_tpu/models/convert.py:
-hubert_params and llama_params).
+hubert_params and llama_params). The eval stack's: ``whisper_state_dict``
+and ``utmos_state_dict`` (the JAX trees, for the tests),
+``utmos_state_dict_from_lightning`` and ``fairseq_wav2vec2_state_dict``
+(the published UTMOS checkpoint); ``save_composite_pretrained`` writes the
+composite directory both packages' ``from_pretrained`` read.
 
 Layouts (Flax -> torch):
   Conv2d kernel   (kh, kw, I, O) -> (O, I, kh, kw)
@@ -27,6 +31,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..core.safetensors import load_hf_state_dict
 
 
 def _np(x) -> np.ndarray:
@@ -315,14 +321,162 @@ def save_pretrained(model_dir, state_dict: Mapping[str, torch.Tensor], config: d
 
 
 def load_checkpoint(model_dir: Path) -> Dict[str, torch.Tensor]:
-    """Read an HF checkpoint directory: ``model.safetensors`` (read with the
-    ``safetensors`` package, imported only here) or ``pytorch_model.bin``."""
-    st = model_dir / "model.safetensors"
-    if st.is_file():
-        from safetensors.torch import load_file
-
-        return load_file(str(st))
+    """Read an HF checkpoint directory: ``model.safetensors`` or its sharded
+    index (``core.safetensors``), else ``pytorch_model.bin``."""
+    model_dir = Path(model_dir)
+    if (model_dir / "model.safetensors").is_file() or (model_dir / "model.safetensors.index.json").is_file():
+        return load_hf_state_dict(model_dir)
     bin_path = model_dir / "pytorch_model.bin"
     if bin_path.is_file():
         return torch.load(bin_path, map_location="cpu", weights_only=True)
     raise FileNotFoundError(f"no model weights (model.safetensors or pytorch_model.bin) in {model_dir}")
+
+
+def _attn(p: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax Whisper attention's projections -> HF names (k has no bias)."""
+    out = {}
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        out[f"{proj}.weight"] = _dense_w(p[proj]["kernel"])
+        if "bias" in p[proj]:
+            out[f"{proj}.bias"] = _t(p[proj]["bias"])
+    return out
+
+
+def whisper_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``WhisperForASR`` params (unrolled ``layers_{i}``) -> the port's
+    ``WhisperForASR`` state_dict, which has the HF keys."""
+    enc, dec = params["encoder"], params["decoder"]
+    parts: Dict[str, Dict[str, torch.Tensor]] = {
+        "model.encoder.conv1": {"weight": _conv1d_w(enc["conv1_kernel"]), "bias": _t(enc["conv1_bias"])},
+        "model.encoder.conv2": {"weight": _conv1d_w(enc["conv2_kernel"]), "bias": _t(enc["conv2_bias"])},
+        "model.encoder.embed_positions": {"weight": _t(enc["embed_positions"])},
+        "model.encoder.layer_norm": _ln(enc["layer_norm"]),
+        "model.decoder.embed_tokens": {"weight": _t(dec["embed_tokens"]["embedding"])},
+        "model.decoder.embed_positions": {"weight": _t(dec["embed_positions"])},
+        "model.decoder.layer_norm": _ln(dec["layer_norm"]),
+        "proj_out": {"weight": _dense_w(dec["proj_out"]["kernel"])},
+    }
+    for side, tree, attns in (("encoder", enc, ("self_attn",)), ("decoder", dec, ("self_attn", "encoder_attn"))):
+        i = 0
+        while f"layers_{i}" in tree:
+            layer, p = tree[f"layers_{i}"], f"model.{side}.layers.{i}"
+            for name in attns:
+                parts[f"{p}.{name}"] = _attn(layer[name])
+                parts[f"{p}.{name}_layer_norm"] = _ln(layer[f"{name}_layer_norm"])
+            parts[f"{p}.final_layer_norm"] = _ln(layer["final_layer_norm"])
+            parts[f"{p}.fc1"] = _dense(layer["mlp"]["fc1"])
+            parts[f"{p}.fc2"] = _dense(layer["mlp"]["fc2"])
+            i += 1
+    return {f"{prefix}.{name}": t for prefix, tensors in parts.items() for name, t in tensors.items()}
+
+
+def _lstm_dirs(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The Flax ``BiLSTM`` (gates [i, f, g, o], one summed bias a direction)
+    -> ``nn.LSTM(bidirectional=True)`` names; the sum goes to ``bias_ih``."""
+    sd = {}
+    for ours, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        sd[f"weight_ih_l0{suffix}"] = _dense_w(params[f"w_ih_{ours}"])
+        sd[f"weight_hh_l0{suffix}"] = _dense_w(params[f"w_hh_{ours}"])
+        sd[f"bias_ih_l0{suffix}"] = _t(params[f"bias_{ours}"])
+        sd[f"bias_hh_l0{suffix}"] = torch.zeros_like(sd[f"bias_ih_l0{suffix}"])
+    return sd
+
+
+def utmos_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``UTMOSPredictor`` params -> the port's ``UTMOSPredictor`` state_dict."""
+    sd = {f"ssl.{k}": v for k, v in hubert_state_dict(params["ssl"]).items()}
+    sd.update({f"decoder_rnn.{k}": v for k, v in _lstm_dirs(params["decoder_rnn"]).items()})
+    sd["domain_embedding.weight"] = _t(params["domain_embedding"]["embedding"])
+    sd["judge_embedding.weight"] = _t(params["judge_embedding"]["embedding"])
+    for name in ("proj_in", "proj_out"):
+        sd[f"{name}.weight"] = _dense_w(params[name]["kernel"])
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
+# fairseq wav2vec2 (the SSL tower inside the UTMOS checkpoint) -> HF / the port's HubertEncoder
+FAIRSEQ_LAYER_KEYS = (
+    ("self_attn.q_proj", "attention.q_proj"),
+    ("self_attn.k_proj", "attention.k_proj"),
+    ("self_attn.v_proj", "attention.v_proj"),
+    ("self_attn.out_proj", "attention.out_proj"),
+    ("self_attn_layer_norm", "layer_norm"),
+    ("fc1", "feed_forward.intermediate_dense"),
+    ("fc2", "feed_forward.output_dense"),
+    ("final_layer_norm", "final_layer_norm"),
+)
+
+
+def fairseq_wav2vec2_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """fairseq ``Wav2Vec2Model`` (wav2vec_small) state_dict -> the port's
+    ``HubertEncoder`` state_dict (the base layouts are the same network):
+    conv blocks ``Sequential(conv, dropout, [GroupNorm], GELU)``, the
+    feature norm and ``post_extract_proj``, the weight-normed positional
+    conv folded, post-LN blocks. Pre-training keys (quantizer, ``mask_emb``,
+    ``final_proj``) are dropped."""
+    out: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"feature_extractor.conv_layers.{i}.0.weight" in sd:
+        base = f"feature_extractor.conv_layers.{i}"
+        out[f"{base}.conv.weight"] = _t(_np(sd[f"{base}.0.weight"]))
+        if f"{base}.2.weight" in sd:
+            out[f"{base}.layer_norm.weight"] = _t(_np(sd[f"{base}.2.weight"]))
+            out[f"{base}.layer_norm.bias"] = _t(_np(sd[f"{base}.2.bias"]))
+        i += 1
+    for theirs, ours in (("layer_norm", "feature_projection.layer_norm"), ("post_extract_proj", "feature_projection.projection"),
+                         ("encoder.layer_norm", "encoder.layer_norm")):
+        out[f"{ours}.weight"], out[f"{ours}.bias"] = _t(_np(sd[f"{theirs}.weight"])), _t(_np(sd[f"{theirs}.bias"]))
+    out[POS_CONV + ".weight"] = _weight_normed_conv1d(sd, "encoder.pos_conv.0")
+    out[POS_CONV + ".bias"] = _t(_np(sd["encoder.pos_conv.0.bias"]))
+    i = 0
+    while f"encoder.layers.{i}.self_attn.q_proj.weight" in sd:
+        for theirs, ours in FAIRSEQ_LAYER_KEYS:
+            for part in ("weight", "bias"):
+                out[f"encoder.layers.{i}.{ours}.{part}"] = _t(_np(sd[f"encoder.layers.{i}.{theirs}.{part}"]))
+        i += 1
+    return out
+
+
+def utmos_state_dict_from_lightning(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """The UTMOS demo's lightning state_dict (a leading ``model.`` optional):
+    ``feature_extractors.0.ssl_model.*`` (fairseq wav2vec2),
+    ``feature_extractors.1.embedding`` (domain),
+    ``output_layers.0.{judge_embedding,decoder_rnn}``,
+    ``output_layers.1.net.{0,3}`` (Linear, ReLU, Dropout, Linear) -> the
+    port's ``UTMOSPredictor`` state_dict, f32."""
+    sd = {(k[len("model."):] if k.startswith("model.") else k): v for k, v in state_dict.items()}
+    ssl = "feature_extractors.0.ssl_model."
+    out = {f"ssl.{k}": v for k, v in fairseq_wav2vec2_state_dict({k[len(ssl):]: v for k, v in sd.items() if k.startswith(ssl)}).items()}
+    rnn = "output_layers.0.decoder_rnn."
+    out.update({f"decoder_rnn.{k[len(rnn):]}": _t(_np(v)) for k, v in sd.items() if k.startswith(rnn)})
+    out["domain_embedding.weight"] = _t(_np(sd["feature_extractors.1.embedding.weight"]))
+    out["judge_embedding.weight"] = _t(_np(sd["output_layers.0.judge_embedding.weight"]))
+    for ours, theirs in (("proj_in", "output_layers.1.net.0"), ("proj_out", "output_layers.1.net.3")):
+        out[f"{ours}.weight"], out[f"{ours}.bias"] = _t(_np(sd[f"{theirs}.weight"])), _t(_np(sd[f"{theirs}.bias"]))
+    return out
+
+
+def save_composite_pretrained(model_dir, model, vocoder) -> None:
+    """The composite checkpoint directory that both packages'
+    ``ConditionalFlowMatchingWithHifiGan.from_pretrained`` read, as the JAX
+    ``save_composite_pretrained`` writes it: ``config.json`` with
+    ``model_config`` (the CFM config's fields) and ``vocoder_config``, and
+    ``model.safetensors`` (f32) with the CFM's keys under ``model.`` and the
+    generator's (its input statistics included) under ``vocoder.``."""
+    import dataclasses
+    import json
+    import os
+
+    from ..core.safetensors import save_file
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    sd = {f"model.{k}": v.detach().float() for k, v in model.state_dict().items()}
+    sd.update({f"vocoder.{k}": v.detach().float() for k, v in vocoder.state_dict().items()})
+    config = {"model_config": dataclasses.asdict(model.config), "vocoder_config": dataclasses.asdict(vocoder.config)}
+    tmp = model_dir / "config.json.tmp"
+    tmp.write_text(json.dumps(config, indent=2))
+    os.replace(tmp, model_dir / "config.json")
+    tmp = model_dir / "model.safetensors.tmp"
+    save_file(sd, tmp)
+    os.replace(tmp, model_dir / "model.safetensors")

@@ -17,8 +17,9 @@ compute dtype, with LayerNorm statistics in f32; the output is f32. With
 takes its statistics from valid frames only and pad frames are zeroed after
 every conv layer and before the positional conv, so a padded row's valid
 frames equal the unpadded run of that row. Attention goes through
-``ops.attention.dot_product_attention``: the flash kernel (K1, d=64,
-bidirectional, key-padding mask) on the card.
+``ops.attention.dot_product_attention``, routed by ``attn_implementation``
+(default "auto": the flash kernel K1, d=64, bidirectional, key-padding mask,
+on the card; "xla": the plain version).
 """
 
 from __future__ import annotations
@@ -166,11 +167,12 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, config: HubertConfig, policy: Policy = DEFAULT):
+    def __init__(self, config: HubertConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         h = config.hidden_size
         self.heads = config.num_attention_heads
         self.policy = policy
+        self.attn_implementation = attn_implementation
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
             nn.Linear(h, h, dtype=policy.param_dtype) for _ in range(4)
         )
@@ -182,7 +184,9 @@ class SelfAttention(nn.Module):
         def heads(proj):
             return _linear(x, proj, cd).view(b, n, self.heads, c // self.heads).transpose(1, 2).contiguous()
 
-        out = dot_product_attention(heads(self.q_proj), heads(self.k_proj), heads(self.v_proj), mask=mask)
+        out = dot_product_attention(
+            heads(self.q_proj), heads(self.k_proj), heads(self.v_proj), mask=mask, implementation=self.attn_implementation
+        )
         return _linear(out.transpose(1, 2).reshape(b, n, c), self.out_proj, cd)
 
 
@@ -201,10 +205,10 @@ class FeedForward(nn.Module):
 class HubertLayer(nn.Module):
     """Post-LN transformer block (HF do_stable_layer_norm=False)."""
 
-    def __init__(self, config: HubertConfig, policy: Policy = DEFAULT):
+    def __init__(self, config: HubertConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         pd = policy.param_dtype
-        self.attention = SelfAttention(config, policy)
+        self.attention = SelfAttention(config, policy, attn_implementation)
         self.layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, dtype=pd)
         self.feed_forward = FeedForward(config, policy)
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, dtype=pd)
@@ -215,21 +219,26 @@ class HubertLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, config: HubertConfig, policy: Policy = DEFAULT):
+    def __init__(self, config: HubertConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(config, policy)
         self.layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps, dtype=policy.param_dtype)
-        self.layers = nn.ModuleList(HubertLayer(config, policy) for _ in range(config.num_hidden_layers))
+        self.layers = nn.ModuleList(
+            HubertLayer(config, policy, attn_implementation) for _ in range(config.num_hidden_layers)
+        )
 
 
 class HubertEncoder(nn.Module):
-    def __init__(self, config: HubertConfig = HubertConfig(), policy: Policy = DEFAULT):
+    """``attn_implementation`` routes every layer's attention
+    (``ops.attention.dot_product_attention``: "auto", "pallas" or "xla")."""
+
+    def __init__(self, config: HubertConfig = HubertConfig(), policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         self.config = config
         self.policy = policy
         self.feature_extractor = ConvFeatureExtractor(config, policy)
         self.feature_projection = FeatureProjection(config, policy)
-        self.encoder = TransformerEncoder(config, policy)
+        self.encoder = TransformerEncoder(config, policy, attn_implementation)
 
     def forward(
         self,

@@ -24,6 +24,7 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.precision import BF16_INFERENCE, Policy
+from ..core.safetensors import load_file
 from ..ops.dedup import deduplicate_batch
 from .composite import init_random_weights
 from .convert import hubert_state_dict_from_hf
@@ -145,8 +146,6 @@ class SpeechEncoder:
         km_path = ckpt_dir / f"{dense_model_name}-{quantizer_model_name}-{vocab_size}.npz"
 
         if dense_path.is_file():
-            from safetensors.torch import load_file
-
             encoder.load_state_dict(hubert_state_dict_from_hf(load_file(str(dense_path))))
         else:
             warnings.warn(

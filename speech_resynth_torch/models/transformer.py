@@ -8,8 +8,9 @@ optional U-Net skip combiners on the back half and a final RMSNorm.
 Activations are (B, N, C) as in the JAX package. Module and parameter names
 follow the HF-format checkpoint keys (``transformer.layers.{i}.{0..4}``), so
 a checkpoint loads with ``load_state_dict``. Attention goes through
-``ops.attention.dot_product_attention``: the flash kernel on the card, with
-the plain version's gradient when training.
+``ops.attention.dot_product_attention``, routed by ``attn_implementation``
+("auto": the flash kernel on the card, with the plain version's gradient
+when training; "xla": the plain version).
 
 Training (a ``dropout_seed`` given): attention dropout takes the JAX
 package's explicit path (f32 scores, -1e30 on masked keys, softmax, dropout
@@ -186,11 +187,13 @@ class ConvPositionEmbed(nn.Module):
 class Attention(nn.Module):
     """Fused-QKV rotary attention."""
 
-    def __init__(self, hidden_size: int, heads: int, policy: Policy = DEFAULT, dropout: float = 0.0):
+    def __init__(self, hidden_size: int, heads: int, policy: Policy = DEFAULT, dropout: float = 0.0,
+                 attn_implementation: str = "auto"):
         super().__init__()
         self.policy = policy
         self.heads = heads
         self.dropout = dropout
+        self.attn_implementation = attn_implementation
         self.to_qkv = nn.Linear(hidden_size, 3 * hidden_size, bias=False, dtype=policy.param_dtype)
         self.to_out = nn.Linear(hidden_size, hidden_size, bias=False, dtype=policy.param_dtype)
 
@@ -208,7 +211,9 @@ class Attention(nn.Module):
             probs = dropout(torch.softmax(scores, dim=-1), self.dropout, dropout_seed, dropout_rows)
             out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
         else:
-            out = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=mask)
+            out = dot_product_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), mask=mask, implementation=self.attn_implementation
+            )
         out = out.transpose(1, 2).reshape(b, n, c)
         return _linear(out, self.to_out, cd)
 
@@ -242,7 +247,7 @@ class Transformer(nn.Module):
     """depth x (AdaRMSNorm -> Attn -> AdaRMSNorm -> ConvFF) pre-norm residual
     stack with optional U-Net skips, then a final RMSNorm."""
 
-    def __init__(self, config: TransformerConfig, policy: Policy = DEFAULT):
+    def __init__(self, config: TransformerConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
         if config.depth % 2:
             raise ValueError(f"depth must be even, got {config.depth}")
@@ -257,7 +262,7 @@ class Transformer(nn.Module):
                     [
                         nn.Linear(2 * h, h, bias=False, dtype=policy.param_dtype) if has_skip else None,
                         AdaptiveRMSNorm(h, policy),
-                        Attention(h, config.heads, policy, config.attn_dropout),
+                        Attention(h, config.heads, policy, config.attn_dropout, attn_implementation),
                         AdaptiveRMSNorm(h, policy),
                         ConvFeedForward(h, config.intermediate_size, policy=policy, dropout=config.ff_dropout),
                     ]

@@ -11,9 +11,11 @@ validation, after a symmetric ``host_local_copy``:
 * ``train_flow_matching``: the CFM trainer over ``UnitDataset`` batches,
   checkpoints every ``save_interval_epoch`` epochs with the HF-format
   export to ``<flow_matching.path>/hf``; a run resumes from its latest
-  checkpoint at the epoch after it (``step // steps_per_epoch + 1``). The
-  dev-set scoring of the JAX loop (``validate_flow_matching``) needs the ASR
-  and MOS scorers, which are not ported yet.
+  checkpoint at the epoch after it (``step // steps_per_epoch + 1``); at
+  each save, rank 0 first runs ``validate_flow_matching`` on the dev set
+  (WER, CER and MOS of the resynthesized dev utterances through the scorers
+  of ``pipeline.scorers``, five ``hyp/`` clips), unless there is no dev set
+  or no vocoder export yet.
 * ``train_hifigan``: the GAN trainer over ``MelDataset`` crops, checkpoints
   and the generator's export (to ``hifigan.path``) every
   ``checkpoint_interval`` steps, full-length validation every
@@ -60,11 +62,12 @@ from ..core.checkpoint import CheckpointManager
 from ..core.device import DeviceLike, resolve_device
 from ..core.mesh import DATA_AXIS, data_coordinates, distributed_init, dp_mesh_for_batch, host_local_copy, make_mesh, process_index
 from ..core.metrics import MetricsWriter, StepTimer, mfu, step_flops, trace_span
+from ..core.precision import DEFAULT
 from ..core.rng import RngStream
 from ..dsp import audio_io
 from ..dsp.mel import log_mel_spectrogram
 from ..models.cfm import CFMConfig
-from ..models.composite import ConditionalFlowMatchingWithHifiGan
+from ..models.composite import ConditionalFlowMatchingWithHifiGan, load_vocoder
 from ..models.convert import save_pretrained
 from ..models.hifigan import HifiGanConfig, HifiGanGenerator
 from ..models.llama import LlamaConfig, LlamaLM
@@ -113,6 +116,60 @@ def _barrier() -> None:
     """Every process waits here for rank 0's files."""
     if dist.is_initialized():
         dist.barrier()
+
+
+@torch.inference_mode()
+def validate_flow_matching(config, model, step: int, writer: MetricsWriter, max_utts: int = 16,
+                           device: DeviceLike = None, noise=None) -> None:
+    """Dev-set synthesis with the training CFM ``model`` and the exported
+    vocoder (``hifigan.path``), scored by ``default_asr`` / ``default_mos``
+    (``NullASR`` / ``EnergyMOS`` without checkpoints): ``dev/WER``,
+    ``dev/CER``, ``dev/MOS``, ``dev/MOS (REF)`` and the first five
+    ``hyp/<name>`` clips, over at most ``max_utts`` utterances in batches of
+    up to 8. Nothing is written when there is no dev utterance or no vocoder
+    export. The ODE noise of batch ``i`` is ``noise(i, shape)`` when given,
+    else drawn from a generator seeded 0, as the JAX loop draws every
+    batch's from ``key(0)``."""
+    from ..text.normalize import cer, wer
+    from .scorers import default_asr, default_mos
+
+    device = resolve_device(device)
+    dev_set = UnitDataset(config.dataset.dev_file, wav_dir=config.dataset.wav_dir, ext_audio=config.dataset.ext_audio)
+    if len(dev_set) == 0:
+        return
+    voc_path = Path(config.hifigan.path) if "hifigan" in config else None
+    if not (voc_path and (voc_path / "config.json").is_file()):
+        return  # no vocoder yet: nothing to score
+    vocoder = load_vocoder(voc_path, DEFAULT).to(device).eval().requires_grad_(False)  # the JAX sweep's default policy
+    asr, mos = default_asr(config, device=device), default_mos(config, device=device)
+    fm = config.flow_matching
+    hyps, refs_text, hyp_scores, ref_scores = [], [], [], []
+    clips = 0
+    for i, batch in enumerate(dev_set.batches(min(8, max_utts), shuffle=False, drop_last=False)):
+        ids = torch.from_numpy(batch["input_ids"]).to(device, torch.long)
+        x0 = None if noise is None else noise(i, (ids.shape[0], ids.shape[1], model.config.dim_in))
+        generator = torch.Generator(device=device).manual_seed(0)
+        mels, mask = model.sample(ids, float(fm.dt), fm.get("truncation_value"), generator=generator, x0=x0)
+        wavs = vocoder(mels).float().cpu().numpy()
+        lengths = vocoder.config.waveform_lengths(mask.sum(dim=1)).cpu().numpy()
+        ref_wavs, ref_lengths = dev_set.wav_batch(batch["names"])
+        hyp_list = [w[: int(n)] for w, n in zip(wavs, lengths)]
+        hyp_scores += [mos.score(w) for w in hyp_list]
+        ref_scores += [mos.score(w[: int(max(n, 0))]) for w, n in zip(ref_wavs, ref_lengths)]
+        hyps += asr.transcribe(hyp_list)
+        refs_text += batch["transcripts"]
+        if clips < 5:
+            for j in range(min(len(hyp_list), 5 - clips)):
+                writer.audio(f"hyp/{batch['names'][j]}", hyp_list[j], step)
+            clips += len(hyp_list)
+        if len(hyps) >= max_utts:
+            break
+    if hyps:
+        writer.scalar("dev/WER", wer(refs_text, hyps), step)
+        writer.scalar("dev/CER", cer(refs_text, hyps), step)
+    if hyp_scores:
+        writer.scalar("dev/MOS", float(np.mean(hyp_scores)), step)
+        writer.scalar("dev/MOS (REF)", float(np.mean(ref_scores)), step)
 
 
 def train_flow_matching(config, device: DeviceLike = None) -> dict:
@@ -196,6 +253,11 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
                     if step_time:
                         writer.scalar("train/steps_per_sec", 1.0 / step_time, step)
             if epoch % trainer_config.save_interval_epoch == 0:
+                if process_index() == 0:
+                    try:
+                        validate_flow_matching(config, model, step, writer, device=device)
+                    except FileNotFoundError:
+                        pass
                 _save(ckpt, step, state)
                 if process_index() == 0:
                     _export_cfm(config, model_config, model)

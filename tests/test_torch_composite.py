@@ -293,6 +293,47 @@ def test_no_jax_import_in_source(path):
         assert not any(n.split(".")[0] in FORBIDDEN for n in names), (path, names)
 
 
+# checkpoint and tokenizer libraries the port does without: it reads safetensors and the
+# Whisper tokenizer's files itself; only the host-CPU fallback scorer TorchWhisperASR imports transformers, lazily
+HUB_LIBRARIES = ("transformers", "tokenizers", "huggingface_hub", "safetensors")
+
+
+def test_port_loads_no_hub_library_on_import():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__") for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {HUB_LIBRARIES!r})\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")))
+def test_no_hub_library_import_in_source(path):
+    """No source of the port imports a hub library, at module level or
+    lazily, except ``TorchWhisperASR``'s import of ``transformers``."""
+    tree = ast.parse((REPO / path).read_text())
+    allowed = set()
+    if path == "speech_resynth_torch/pipeline/scorers.py":
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ClassDef) and node.name == "TorchWhisperASR":
+                allowed |= {id(n) for n in ast.walk(node) if isinstance(n, ast.ImportFrom) and n.module == "transformers"}
+        assert allowed, "TorchWhisperASR's lazy transformers import moved"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:  # not the port's own subpackages
+            names = [node.module or ""]
+        else:
+            continue
+        if id(node) not in allowed:
+            assert not any(n.split(".")[0] in HUB_LIBRARIES for n in names), (path, names)
+
+
 def test_entry_points_default_to_the_card_and_refuse_without_it(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfm, voc = torch_cfm.CFMConfig(**CFM_KW), torch_hifigan.HifiGanConfig(**VOC_KW)

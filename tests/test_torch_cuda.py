@@ -786,3 +786,185 @@ def test_tiny_lm_step_card_matches_cpu(card, attn_implementation, remat):
     (``_compare_steps``); "xla" never launches K1, "auto" and "pallas" once
     per layer forward (twice with remat)."""
     lm_step_card_vs_cpu(attn_implementation, remat)
+
+
+# the eval stack: Whisper's cross-attention (a decode step's one query, the
+# prompt's four, the encoder's 1 500 keys, no mask, not causal) and a smaller one
+CROSS_SHAPES = [(8, 20, 1, 1500), (8, 20, 4, 1500), (3, 2, 1, 130), (3, 2, 7, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Nq,Nk", CROSS_SHAPES)
+def test_flash_kernel_at_cross_attention_shapes_on_card(card, dtype, B, H, Nq, Nk):
+    """K1 with q_len below one 64-query block and q_len != k_len, not causal:
+    the block's empty rows are never stored."""
+    rng = np.random.default_rng(Nq * Nk)
+    q = torch.from_numpy(rng.standard_normal((B, H, Nq, 64)).astype(np.float32)).to("cuda", dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, Nk, 64)).astype(np.float32)).to("cuda", dtype) for _ in range(2))
+    got = TA.flash_attention(q, k, v, None, False)
+    torch.cuda.synchronize()
+    want = TA.attention_reference(q, k, v, None, False)
+    assert got.shape == (B, H, Nq, 64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATT_TOL[dtype])
+
+
+WHISPER_TINY = dict(vocab_size=96, num_mel_bins=16, d_model=128, encoder_layers=2, encoder_attention_heads=2,
+                    decoder_layers=2, decoder_attention_heads=2, encoder_ffn_dim=256, decoder_ffn_dim=256,
+                    max_source_positions=50, max_target_positions=40, decoder_start_token_id=90, eos_token_id=91)
+GAP_TOL = 1e-3  # ids must agree while the CPU run's top-2 logit gap exceeds this
+
+
+def whisper_decode_card_vs_cpu(kw: dict = WHISPER_TINY, batch: int = 4, new_tokens: int = 12, seed: int = 0) -> dict:
+    """``greedy_decode`` of seeded random weights in f32 on the card (K1 at the
+    encoder, the prefill's and every step's cross-attention) and on the CPU:
+    the ids agree up to the first step whose top-2 logit gap on the CPU is
+    below ``GAP_TOL``; the encoder states and the teacher-forced logits agree
+    within 1e-3."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models import whisper as TW
+    from speech_resynth_torch.models.composite import init_random_weights
+
+    cfg = TW.WhisperConfig(**kw)
+    model = TW.WhisperForASR(cfg, FLOAT32).eval()
+    init_random_weights(model, torch.Generator().manual_seed(seed))
+    mel = torch.from_numpy(np.random.default_rng(seed).standard_normal((batch, 2 * cfg.max_source_positions, cfg.num_mel_bins))
+                           .astype(np.float32))
+    prompt = torch.tensor([[cfg.decoder_start_token_id, 5, 9]] * batch)
+    cpu = TW.greedy_decode(model, mel, new_tokens, prompt)
+    with torch.no_grad():
+        logits = model(mel, cpu[:, :-1])[:, prompt.shape[1] - 1 :]
+        enc_cpu = model.encode(mel)
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]  # (B, new_tokens)
+    model.cuda()
+    before = TA.flash_attention.launches
+    card = TW.greedy_decode(model, mel.cuda(), new_tokens, prompt).cpu()
+    torch.cuda.synchronize()
+    launches = TA.flash_attention.launches - before
+    with torch.no_grad():
+        enc_err = float((model.encode(mel.cuda()).cpu() - enc_cpu).abs().max())
+        logit_err = float((model(mel.cuda(), cpu[:, :-1].cuda())[:, prompt.shape[1] - 1 :].cpu() - logits).abs().max())
+    p = prompt.shape[1]
+    agree = []
+    for b in range(batch):
+        clear = gap[b] > GAP_TOL
+        n = int(clear.long().cumprod(0).sum())  # steps up to the first near-tie
+        agree.append(bool(torch.equal(card[b, : p + n], cpu[b, : p + n])))
+    record = {"batch": batch, "new_tokens": new_tokens, "k1_launches": launches, "ids_agree": all(agree),
+              "min_top2_gap": float(gap.min()), "encoder_max_abs_err": enc_err, "logits_max_abs_err": logit_err,
+              "gap_tol": GAP_TOL}
+    assert record["ids_agree"] and enc_err < 1e-3 and logit_err < 1e-3, record
+    return record
+
+
+@pytest.mark.cuda
+def test_tiny_whisper_greedy_decode_card_matches_cpu(card):
+    whisper_decode_card_vs_cpu()
+
+
+def utmos_card_vs_cpu(seed: int = 0) -> dict:
+    """A tiny UTMOS (tower hidden 128, two heads of 64) of seeded random
+    weights in f32 on a right-padded batch of three waves, on the card (K1 at
+    the tower's masked shape) and on the CPU: valid-frame scores within
+    1e-3, MOS within 1e-4, and each padded row equal to its wave alone."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models import utmos as TU
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.models.hubert import HubertConfig
+
+    ssl = HubertConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                       conv_dim=(32, 32, 32), conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2), num_conv_pos_embeddings=16,
+                       num_conv_pos_embedding_groups=4)
+    cfg = TU.UTMOSConfig(ssl=ssl, domain_dim=8, num_judges=10, judge_dim=8, lstm_hidden=16, projection_hidden=32)
+    model = TU.UTMOSPredictor(cfg, FLOAT32).eval()
+    init_random_weights(model, torch.Generator().manual_seed(seed))
+    lens = [4000, 2600, 1500]
+    rng = np.random.default_rng(seed)
+    waves = torch.zeros(3, max(lens))
+    for i, n in enumerate(lens):
+        waves[i, :n] = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 0.1)
+    n_samples = torch.tensor(lens)
+    frames_n = cfg.ssl.num_frames(n_samples)
+    dom, judge = torch.tensor([0, 1, 2]), torch.tensor([3, 0, 9])
+    with torch.no_grad():
+        cpu = model(waves, dom, judge, n_samples)
+        model.cuda()
+        before = TA.flash_attention.launches
+        on_card = model(waves.cuda(), dom.cuda(), judge.cuda(), n_samples.cuda())
+        torch.cuda.synchronize()
+        launches = TA.flash_attention.launches - before
+        alone = [model(waves[i : i + 1, :n].cuda(), dom[i : i + 1].cuda(), judge[i : i + 1].cuda()).cpu() for i, n in enumerate(lens)]
+    on_card = on_card.cpu()
+    err = max(float((on_card[i, :n] - cpu[i, :n]).abs().max()) for i, n in enumerate(frames_n.tolist()))
+    alone_err = max(float((on_card[i, :n] - alone[i][0]).abs().max()) for i, n in enumerate(frames_n.tolist()))
+    mos_err = float((TU.UTMOSPredictor.score_from_frames(on_card, frames_n) - TU.UTMOSPredictor.score_from_frames(cpu, frames_n)).abs().max())
+    record = {"lengths": lens, "k1_launches": launches, "frames_max_abs_err": err, "padded_vs_alone_max_abs_err": alone_err,
+              "mos_max_abs_err": mos_err}
+    assert launches == ssl.num_hidden_layers and err < 1e-3 and alone_err < 1e-3 and mos_err < 1e-4, record
+    return record
+
+
+@pytest.mark.cuda
+def test_tiny_utmos_card_matches_cpu(card):
+    utmos_card_vs_cpu()
+
+
+def write_whisper_tokenizer(path, n_vocab: int, seed: int = 0, clean_up: bool = True, languages=("en",),
+                            timestamps: int = 10) -> dict:
+    """Byte-level BPE files in Whisper's layout (``vocab.json``,
+    ``merges.txt``, ``tokenizer_config.json``): ``n_vocab`` vocabulary tokens
+    (the 256 bytes, some words and multi-byte UTF-8 pieces, then seeded
+    distinct 2-3 character tokens of GPT-2's printable byte characters),
+    then as added tokens the specials in large-v3's order (end of text,
+    start of transcript, ``languages``, translate, transcribe, start of LM,
+    start of previous text, no speech, no timestamps) and ``timestamps``
+    timestamp tokens. With 50 257 tokens, 100 languages and 1 501
+    timestamps the ids are large-v3's 51 866. Returns the vocabulary and
+    the added tokens' ids."""
+    import json
+
+    from speech_resynth_torch.pipeline.scorers import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    rng = np.random.default_rng(seed)
+    vocab = {b2u[b]: b for b in range(256)}
+    for piece in (" the", " cat", "é", " ü", "日本", " ,", " .", "n't", " 's", "€"):
+        vocab.setdefault("".join(b2u[b] for b in piece.encode()), len(vocab))
+    while len(vocab) < n_vocab:
+        vocab.setdefault("".join(b2u[int(b)] for b in rng.integers(32, 127, rng.integers(2, 4))), len(vocab))
+    specials = (["<|endoftext|>", "<|startoftranscript|>"] + [f"<|{lang}|>" for lang in languages]
+                + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>"])
+    added = specials + [f"<|{0.02 * i:.2f}|>" for i in range(timestamps)]
+    ids = {c: n_vocab + i for i, c in enumerate(added)}
+    (path / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (path / "merges.txt").write_text("#version: 0.2\n")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "added_tokens_decoder": {str(i): {"content": c, "special": c in specials} for c, i in ids.items()},
+        "additional_special_tokens": specials[1:],
+        "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>", "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+        "clean_up_tokenization_spaces": clean_up, "errors": "replace", "tokenizer_class": "WhisperTokenizer",
+    }))
+    return {"vocab": vocab, "added": ids}
+
+
+class RecordingWriter:
+    """A stand-in for ``core.metrics.MetricsWriter`` (a no-op without
+    tensorboardX) that records the scalars and the audio clips' tags and
+    lengths."""
+
+    def __init__(self, *args, **kwargs):
+        self.scalars_, self.clips = {}, []
+
+    def scalar(self, tag, value, step):
+        self.scalars_[tag] = float(value)
+
+    def scalars(self, values, step, prefix=""):
+        for k, v in values.items():
+            self.scalar(prefix + k, v, step)
+
+    def audio(self, tag, waveform, step, sample_rate=16000):
+        self.clips.append((tag, len(np.asarray(waveform).reshape(-1))))
+
+    def __getattr__(self, name):  # the loops' other summaries
+        return lambda *args, **kwargs: None
