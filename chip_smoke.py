@@ -84,10 +84,24 @@
    UTMOS tower's, greedy decoding and UTMOS in f32 on the card against the
    CPU; the CFM loop of step 13 also runs its dev sweep (``dev/*``
    scalars, five clips) once the HiFi-GAN loop has exported a vocoder;
-16. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
+16. prints the MFU of the CFM and HiFi-GAN steps of step 13 (the analytic
+   counts of ``core.metrics``) and checks the loops' ``train/MFU`` and
+   ``training/MFU`` in (0, 1); runs the CLIs as a user does:
+   ``cli.resynth`` and ``cli.speechlm`` ``--help`` in subprocesses,
+   ``cli.resynth.main(["all", ...])`` then ``main(["synthesize", ...])`` on
+   a 24 kHz LibriTTS-R-shaped tree of 16 files at the widths of
+   configs/resynth/mhubert-expresso-2000.yaml (batches of 6: one epoch of 2
+   steps), with the checks of tests/test_cli_chain.py, and
+   ``cli.speechlm.main`` ``eval`` and ``generate`` on the LM loop's
+   checkpoint; calls ``graft_entry.entry()`` (the flagship decoder, 64 K1 +
+   9 K2, timed); runs ``run_e2e_quality`` (scale ``E2E_SCALE``) with the JAX
+   test's quality gates, beside the JAX package's numbers of E2E_QUALITY.md;
+17. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
    tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
    CFM loop's dev sweep, the trained pair's decoder, the LM loop's scoring
-   and generation, evaluate's decoder), profiles device time by kernel group, prints the
+   and generation, evaluate's decoder, the CLI's encoder and decoder
+   batches, the entry's decoder, the quality run's f32 vocoder and pair
+   scoring), profiles device time by kernel group, prints the
    script's wall time and one ``{"kernels": [...]}`` line (launches of every path above, the
    shape of every counted launch, and the times of each kernel at every
    timed shape) and, last, the ``{"ok": true, ...}`` line.
@@ -352,70 +366,72 @@ def mrf_shapes(voc_cfg, frames: int):
     return shapes
 
 
-def mrf_operands(torch, gen, C, T, K, dtype, B):
+def mrf_operands(torch, gen, C, T, K, dtype, B, n_dilations: int = len(MRF_DILATIONS)):
     std = 1.0 / math.sqrt(C * K)
     x = (torch.randn(B, C, T, generator=gen, device="cuda") * 0.5).to(dtype)
-    w1, w2 = ((torch.randn(3, C, C, K, generator=gen, device="cuda") * std).to(dtype) for _ in range(2))
-    b1, b2 = ((torch.randn(3, C, generator=gen, device="cuda") * 0.01).to(dtype) for _ in range(2))
+    w1, w2 = ((torch.randn(n_dilations, C, C, K, generator=gen, device="cuda") * std).to(dtype) for _ in range(2))
+    b1, b2 = ((torch.randn(n_dilations, C, generator=gen, device="cuda") * 0.01).to(dtype) for _ in range(2))
     return x, w1, b1, w2, b2
 
 
-def mrf_check(torch, M, gen, C, T, K, B) -> dict:
+def mrf_check(torch, M, gen, C, T, K, B, dilations=MRF_DILATIONS) -> dict:
     """K2 against mrf_branch_reference at one (B, C, T, K), bf16 and f32, with
     the tile its C entry plans there."""
     errs = {}
     for name in DTYPES:
-        args = mrf_operands(torch, gen, C, T, K, getattr(torch, name), B)
-        got = M.mrf_branch_kernel(*args, MRF_DILATIONS)
-        want = M.mrf_branch_reference(*args, MRF_DILATIONS)
+        args = mrf_operands(torch, gen, C, T, K, getattr(torch, name), B, len(dilations))
+        got = M.mrf_branch_kernel(*args, dilations)
+        want = M.mrf_branch_reference(*args, dilations)
         torch.cuda.synchronize()
         errs[name] = max_err(torch, got, want)
         if not torch.isfinite(got.float()).all() or errs[name] > MRF_TOL[name]:
-            fail(f"mrf_branch B={B} C={C} T={T} K={K} {name}: max abs err {errs[name]} > {MRF_TOL[name]}")
-    t_tile, window, shared, _ = M.kernel_branch_plan(B, C, T, K, MRF_DILATIONS, 2)
-    return {"B": B, "C": C, "T": T, "K": K, "t_tile": t_tile, "window": window, "shared_bytes": shared,
-            "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"]}
+            fail(f"mrf_branch B={B} C={C} T={T} K={K} {dilations} {name}: max abs err {errs[name]} > {MRF_TOL[name]}")
+    t_tile, window, shared, _ = M.kernel_branch_plan(B, C, T, K, dilations, 2)
+    return {"B": B, "C": C, "T": T, "K": K, "dilations": list(dilations), "t_tile": t_tile, "window": window,
+            "shared_bytes": shared, "max_abs_err": errs["bfloat16"], "f32_max_abs_err": errs["float32"]}
 
 
-def cudnn_chain(torch, F, x, w1, b1, w2, b2):
+def cudnn_chain(torch, F, x, w1, b1, w2, b2, dilations=MRF_DILATIONS):
     """The branch as six bf16 cuDNN convs with their lrelu and adds: a
     yardstick of speed only, with other numerics (it rounds the residual to
     bf16 at every step, where K2 keeps it in f32). The port never calls it."""
     K = w1.shape[-1]
-    for j, d in enumerate(MRF_DILATIONS):
+    for j, d in enumerate(dilations):
         h = F.conv1d(F.leaky_relu(x, 0.1), w1[j], b1[j], padding=(K - 1) * d // 2, dilation=d)
         x = x + F.conv1d(F.leaky_relu(h, 0.1), w2[j], b2[j], padding=(K - 1) // 2)
     return x
 
 
-def mrf_path(torch, F, M, gen, voc_cfg, path: str, frames: int, batch: int = SERVE_BATCH) -> dict:
-    """K2 at the nine launches of one vocoder call on ``batch`` rows of
-    ``frames`` frames: checks, and bf16 times summed over the call (host
-    loop ``ms``, device ``graph_ms``, the plain version, and the cuDNN chain
-    as a yardstick)."""
+def mrf_path(torch, F, M, gen, voc_cfg, path: str, frames: int, batch: int = SERVE_BATCH, launch_shapes=None) -> dict:
+    """K2 at the launches of one vocoder call on ``batch`` rows of ``frames``
+    frames (nine at the config's widths; ``launch_shapes``: the (C, T, K) a
+    narrower generator launches, its dilations ``voc_cfg``'s): checks, and
+    bf16 times summed over the call (host loop ``ms``, device ``graph_ms``,
+    the plain version, and the cuDNN chain as a yardstick)."""
     shapes = []
     keys = ("ms", "graph_ms", "cudnn_chain_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")
     totals = dict.fromkeys(keys, 0.0)
-    for C, T, K in mrf_shapes(voc_cfg, frames):
-        check = mrf_check(torch, M, gen, C, T, K, batch)
-        args = mrf_operands(torch, gen, C, T, K, torch.bfloat16, batch)
+    dilations = tuple(voc_cfg.resblock_dilation_sizes[0])
+    for C, T, K in launch_shapes or mrf_shapes(voc_cfg, frames):
+        check = mrf_check(torch, M, gen, C, T, K, batch, dilations)
+        args = mrf_operands(torch, gen, C, T, K, torch.bfloat16, batch, len(dilations))
         times = timed(
             torch,
-            lambda: M.mrf_branch_kernel(*args, MRF_DILATIONS),
-            lambda: M.mrf_branch_reference(*args, MRF_DILATIONS),
+            lambda: M.mrf_branch_kernel(*args, dilations),
+            lambda: M.mrf_branch_reference(*args, dilations),
             None,
-            nbytes=2 * batch * C * T * 2 + 2 * 3 * (C * C * K + C) * 2,
-            flops=12.0 * K * C * C * T * batch,
+            nbytes=2 * batch * C * T * 2 + 2 * len(dilations) * (C * C * K + C) * 2,
+            flops=4.0 * len(dilations) * K * C * C * T * batch,
             peak_flops=PEAK_BF16_FLOPS,
             iters=(10, 3, 0) if batch == 1 else (5, 3, 0),
         )
-        times["graph_ms"] = graph_ms(torch, lambda: M.mrf_branch_kernel(*args, MRF_DILATIONS), iters=10, reps=3)
-        times["cudnn_chain_ms"] = graph_ms(torch, lambda: cudnn_chain(torch, F, *args), iters=10, reps=3)
+        times["graph_ms"] = graph_ms(torch, lambda: M.mrf_branch_kernel(*args, dilations), iters=10, reps=3)
+        times["cudnn_chain_ms"] = graph_ms(torch, lambda: cudnn_chain(torch, F, *args, dilations), iters=10, reps=3)
         shapes.append({**check, **times})
         for key in totals:
             totals[key] += times[key]
     record = {
-        "path": path, "frames": frames, "batch": batch, "per": "vocoder call: nine launches", "dtype": "bfloat16",
+        "path": path, "frames": frames, "batch": batch, "per": f"vocoder call: {len(shapes)} launches", "dtype": "bfloat16",
         "max_abs_err": max(c["max_abs_err"] for c in shapes), "f32_max_abs_err": max(c["f32_max_abs_err"] for c in shapes),
         "tol": MRF_TOL, **totals, "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations",
         "library_ms": None, "cudnn_chain": "six bf16 cuDNN convs, lrelu and adds: a yardstick, other numerics",
@@ -1659,15 +1675,15 @@ def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
     return results
 
 
-def write_libritts_tree(np, audio_io, root: Path) -> dict:
-    """A LibriTTS-R-shaped tree at 24 kHz: PRE_FILES speech-like files of
+def write_libritts_tree(np, audio_io, root: Path, files: int = PRE_FILES, train: int = 32, dev: int = 8) -> dict:
+    """A LibriTTS-R-shaped tree at 24 kHz: ``files`` speech-like files of
     4-10 s, each with 0.2-0.6 s of near-silence before and after (for the
-    VAD), and its ``.normalized.txt``; 32 in ``train-clean-100``, 8 in
-    ``dev-clean``, 8 in ``test-clean``. Returns {name: samples}."""
+    VAD), and its ``.normalized.txt``; ``train`` in ``train-clean-100``,
+    ``dev`` in ``dev-clean``, the rest in ``test-clean``. Returns {name: samples}."""
     rng = np.random.default_rng(22)
     lengths = {}
-    for i, wave in enumerate(speechlike_waves(np, rng, PRE_FILES, (4, 10), PRE_RATE)):
-        split = "train-clean-100" if i < 32 else "dev-clean" if i < 40 else "test-clean"
+    for i, wave in enumerate(speechlike_waves(np, rng, files, (4, 10), PRE_RATE)):
+        split = "train-clean-100" if i < train else "dev-clean" if i < train + dev else "test-clean"
         pads = rng.integers(int(0.2 * PRE_RATE), int(0.6 * PRE_RATE), 2)
         wave = np.concatenate([0.001 * rng.standard_normal(pads[0]), wave, 0.001 * rng.standard_normal(pads[1])]).astype(np.float32)
         name = f"{split}/{100 + i % 5}/{i:03d}/{100 + i % 5}_{i:03d}_000001"
@@ -1983,7 +1999,10 @@ def train_cfm_phase(torch, np, A) -> dict:
     (finite, falling loss; 4 K1 launches a step), then 3 with remat (the same
     first loss within 1e-3, 8 launches a step, less peak memory); ms per
     step, segments per second and peak memory of each. Then one small-width
-    f32 step on the card against the CPU, without and with remat."""
+    f32 step on the card against the CPU, without and with remat. MFU:
+    ``core.metrics.cfm_step_flops`` (matmuls and convs) over the step time
+    and the bf16 peak, as the loop writes ``train/MFU``."""
+    from speech_resynth_torch.core.metrics import cfm_step_flops, mfu
     from speech_resynth_torch.core.precision import DEFAULT
     from speech_resynth_torch.models.cfm import CFMConfig
     from speech_resynth_torch.train.cfm import CFMTrainerConfig, make_trainer
@@ -2010,8 +2029,10 @@ def train_cfm_phase(torch, np, A) -> dict:
         ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
         n = A.flash_attention.launches
         launches += n
+        flops = cfm_step_flops(model.config, CFM_TRAIN["batch_size"], CFM_TRAIN["frames_per_seg"], remat)
         runs[remat] = {
             "remat": remat, "steps": steps, "ms_per_step": ms, "segments_per_s": CFM_TRAIN["batch_size"] / ms * 1e3,
+            "step_tflop": flops / 1e12, "mfu": mfu(flops, ms / 1e3, "cuda"),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30, "k1_launches": n,
             "losses": [float(x) for x in losses], "grad_norm": float(metrics["grad_norm"]),
         }
@@ -2021,6 +2042,8 @@ def train_cfm_phase(torch, np, A) -> dict:
         del model, state, step, metrics
         if n != steps * 4 * (2 if remat else 1):
             fail(f"CFM training launched K1 {n} times in {steps} steps (remat={remat})")
+        if not 0 < runs[remat]["mfu"] < 1:
+            fail(f"CFM step MFU {runs[remat]['mfu']} outside (0, 1)")
     plain, remat = runs[False], runs[True]
     losses = plain["losses"]
     if not all(math.isfinite(x) for x in losses) or np.mean(losses[-5:]) >= np.mean(losses[:5]):
@@ -2051,7 +2074,10 @@ def train_hifigan_phase(torch, np, M) -> dict:
     policy) at the config's batch of 64 x 16 080 samples (50 frames): 10
     steps, finite losses, no K2 or K3 launch (the generator records a
     gradient, so it runs the plain conv chain); ms per step, peak memory.
-    Then one small-width f32 step on the card against the CPU."""
+    Then one small-width f32 step on the card against the CPU. MFU:
+    ``core.metrics.hifigan_step_flops`` over the step time and the bf16
+    peak, as the loop writes ``training/MFU``."""
+    from speech_resynth_torch.core.metrics import hifigan_step_flops, mfu
     from speech_resynth_torch.core.precision import DEFAULT
     from speech_resynth_torch.models.hifigan import HifiGanConfig
     from speech_resynth_torch.train.hifigan import HifiGanTrainerConfig, make_gan_trainer
@@ -2072,8 +2098,10 @@ def train_hifigan_phase(torch, np, M) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / (GAN_STEPS - 1)
     launches = {"mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    flops = hifigan_step_flops(HifiGanConfig(), GAN_TRAIN["batch_size"], GAN_FRAMES)
     record = {
         "phase": "train_hifigan_step", "steps": GAN_STEPS, "batch": list(batch["wav"].shape), "ms_per_step": ms,
+        "step_tflop": flops / 1e12, "mfu": mfu(flops, ms / 1e3, "cuda"),
         "segments_per_s": GAN_TRAIN["batch_size"] / ms * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches, "metrics": [{k: float(v) for k, v in m.items()} for m in history],
     }
@@ -2082,6 +2110,8 @@ def train_hifigan_phase(torch, np, M) -> dict:
     del state, step, history, metrics
     if any(launches.values()) or not all(math.isfinite(v) for m in record["metrics"] for v in m.values()):
         fail(f"HiFi-GAN training: launches {launches}, metrics {record['metrics'][-1]}")
+    if not 0 < record["mfu"] < 1:
+        fail(f"HiFi-GAN step MFU {record['mfu']} outside (0, 1)")
     small = gan_step_card_vs_cpu()
     print(json.dumps({"phase": "train_hifigan_card_vs_cpu", **small}))
     torch.cuda.empty_cache()
@@ -2288,9 +2318,16 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
                      GAN_TRAIN["segment_size"], 400, 320, False)
     dev_batches = [list(b["mel"].shape[:2]) for b in dev.padded_batches(8, max_utts=32, with_wav=False)]
     validations = 2  # at steps 2 and 4
+    from test_torch_cuda import RecordingWriter
+
+    gan_writer = RecordingWriter()
+    real_writer, train_loops.MetricsWriter = train_loops.MetricsWriter, lambda *args, **kwargs: gan_writer
     M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
     t1 = time.perf_counter()
-    result = train_loops.train_hifigan(config_from_dict(loop_config(root, "wavs.txt")))
+    try:
+        result = train_loops.train_hifigan(config_from_dict(loop_config(root, "wavs.txt")))
+    finally:
+        train_loops.MetricsWriter = real_writer
     torch.cuda.synchronize()
     gan_launches = {"mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
     record["hifigan"] = {"step": result["step"], "metrics": result["metrics"], "seconds": time.perf_counter() - t1,
@@ -2299,8 +2336,6 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
         fail(f"train_hifigan: {record['hifigan']}")
 
     # the third epoch: its save runs the dev sweep through the vocoder the GAN loop exported
-    from test_torch_cuda import RecordingWriter
-
     writer = RecordingWriter()
     real_writer, train_loops.MetricsWriter = train_loops.MetricsWriter, lambda *args, **kwargs: writer
     A.flash_attention.launches, M.mrf_branch_kernel.launches = cfm_launches["flash_attention"], cfm_launches["mrf_branch"]
@@ -2318,6 +2353,12 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
         fail(f"train_flow_matching did not checkpoint and resume as expected: {record}")
     if sorted(dev_scalars) != ["dev/CER", "dev/MOS", "dev/MOS (REF)", "dev/WER"] or len(writer.clips) != 5:
         fail(f"train_flow_matching's dev sweep wrote {sorted(dev_scalars)} and clips {writer.clips}")
+    # the loops' MFU (the last summary's: one step between two syncs), written beside steps_per_sec
+    record["loop_mfu"] = {k: w.scalars_.get(k) for w, k in ((writer, "train/MFU"), (gan_writer, "training/MFU"))}
+    record["loop_steps_per_sec"] = {k: w.scalars_.get(k) for w, k in ((writer, "train/steps_per_sec"),
+                                                                       (gan_writer, "training/steps_per_sec"))}
+    if not all(v is not None and 0 < v < 1 for v in record["loop_mfu"].values()):
+        fail(f"the loops' MFU scalars: {record['loop_mfu']}")
     want = {"flash_attention": 6 * 4 + 4 * 16 * len(sweep), "mrf_branch": 9 * len(sweep)}
     if cfm_launches != want:
         fail(f"train_flow_matching launched {cfm_launches} in 6 steps and its dev sweep, expected {want}")
@@ -2339,7 +2380,8 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
         fail(f"the exported pair did not synthesize: {record['export']}")
     print(json.dumps(record))
     return {"cfm": cfm_launches, "hifigan": gan_launches, "export": export_launches, "dev_batches": dev_batches,
-            "validations": validations, "kill_resume": kill, "cfm_dev_sweep": record["cfm_dev_sweep"]["batches"]}
+            "validations": validations, "kill_resume": kill, "cfm_dev_sweep": record["cfm_dev_sweep"]["batches"],
+            "loop_mfu": record["loop_mfu"]}
 
 
 LM_TRAIN_BATCH, LM_TRAIN_TOKENS = 96, 128  # configs/speechlm/hubert.yaml batch_size_per_device, units_per_sample
@@ -2544,8 +2586,10 @@ def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
     checkpoint (K1; the native pair scorer on the JSONs' gold tables),
     ``generate_speechlm`` of the checkpoint without and with a decoder
     directory (the continuation phase's prompt, tokenizer and decoder, stage
-    fusion off: K2); then, in processes of their own, the kill/resume check
-    and ``distributed_phase``."""
+    fusion off: K2); ``eval`` and ``generate`` (greedy, with the decoder)
+    again through ``cli.speechlm.main`` from a YAML of the same config: the
+    same launches and the same continuation's length; then, in processes of
+    their own, the kill/resume check and ``distributed_phase``."""
     import shutil
 
     from speech_resynth_torch.core.config import config_from_dict
@@ -2618,6 +2662,37 @@ def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
             fail("generate_speechlm without a decoder returned a waveform")
     record["generate"] = generate
     del dec
+
+    # the same two stages through the CLI (speech_resynth_torch.cli.speechlm) on the checkpoint, from a YAML
+    import yaml
+
+    from speech_resynth_torch.cli import speechlm as lm_cli
+
+    cfg_path = root / "loop.yaml"
+    cfg_path.write_text(yaml.safe_dump(config))
+    cli = {}
+    A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    lm_cli.main(["eval", "--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    cli["eval"] = {"launches": {"flash_attention": A.flash_attention.launches}, "seconds": time.perf_counter() - t0}
+    lines = (root / "loop" / "results" / "lexical" / "test.txt").read_text().splitlines()
+    if cli["eval"]["launches"] != evaluation or len(lines) != 2 * LM_SLM21_PAIRS:
+        fail(f"cli.speechlm eval: {cli['eval']}, {len(lines)} lexical test scores")
+    out_wav = root / "generated_cli.wav"
+    A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    lm_cli.main(["generate", "--config", str(cfg_path), "--prompt-wav", str(cont_tmp / "prompt.wav"), "--out-wav", str(out_wav),
+                 "--decoder-dir", str(cont_tmp / "decoder"), "--max-new-tokens", str(LM_GEN_TOKENS), "--temperature", "0.0"])
+    torch.cuda.synchronize()
+    launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    # greedy decoding from the same checkpoint and prompt: the direct call's continuation, so its length
+    direct = audio_io.info(root / "generated_speech.wav")
+    cli["generate"] = {"launches": launches, "seconds": time.perf_counter() - t0, "wav": audio_io.info(out_wav), "direct_wav": direct}
+    if launches != generate["speech"]["expected"] or cli["generate"]["wav"] != direct:
+        fail(f"cli.speechlm generate: {cli['generate']}, expected the launches {generate['speech']['expected']}")
+    record["cli"] = cli
     print(json.dumps(record))
     torch.cuda.empty_cache()
     shutil.rmtree(root / "loop")  # its checkpoints (1.65 GB each) have been read: room for the runs below
@@ -2625,6 +2700,7 @@ def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
     kill = lm_kill_resume_check(torch, root, config)
     distributed = distributed_phase(torch, root, one_rank, kill)
     return {"validation": validation, "eval": evaluation, "generate": {k: v["launches"] for k, v in generate.items()},
+            "cli_eval": cli["eval"]["launches"], "cli_generate": cli["generate"]["launches"],
             "generate_decoder": (generate["speech"]["bound"], generate["speech"]["frames"]), "scoring_shapes": shapes,
             "kill_resume": kill, "distributed": distributed}
 
@@ -3079,6 +3155,214 @@ def evaluate_phase(torch, np, A, M, root: Path, asr, mos) -> dict:
     return out
 
 
+# -- the CLIs, the entry points of graft_entry and the end-to-end quality run ---------
+
+CLI_FILES, CLI_TRAIN, CLI_DEV = 16, 12, 2  # the cli phase's 24 kHz tree: 12 train, 2 dev and 2 test files
+CLI_BATCH = 6  # both trainers' batch there: one epoch of 2 steps over the 12 train files
+E2E_SCALE = "ci"  # the chip scale runs for minutes: python -m speech_resynth_torch.pipeline.e2e_quality <dir> chip
+# E2E_QUALITY.md: the JAX package's quality numbers at scale "chip" (mel-L1s and pair accuracy; its times are a TPU's)
+JAX_E2E_QUALITY = {"gan_mel_l1_untrained": 4.61, "gan_mel_l1_trained": 0.95, "cfm_mel_l1_untrained": 2.97,
+                   "cfm_mel_l1_trained": 1.29, "resynth_mel_l1": 1.00, "lm_pair_accuracy": 1.00}
+
+
+def cli_resynth_config(root: Path) -> dict:
+    """configs/resynth/mhubert-expresso-2000.yaml over the tree under
+    ``root``: its widths, encoder and trainer values; both batches cut to
+    CLI_BATCH and one epoch each (2 steps), a CFM save (and its dev sweep)
+    at that epoch; no composite checkpoint, so ``evaluate`` and
+    ``synthesize`` read the two training exports."""
+    wav_dir = root / "16k"
+    return {
+        "common": {"seed": 0},
+        "dataset": {"wav_dir": str(wav_dir), "wav_dir_orig": str(root / "orig"), "spectrogram_dir": str(wav_dir / "spectrogram"),
+                    "vad": False, "preprocess_batch_size": PRE_TOKENIZE_BATCH, "ext_audio": ".wav", "ext_txt": ".normalized.txt",
+                    "train_file": str(root / "units/train.json"), "dev_file": str(root / "units/dev.json"),
+                    "test_file": str(root / "units/test.json")},
+        "synthesis": {"src_dir": str(wav_dir), "tgt_dir": str(root / "resynth"), "split": "test-*", "ext_audio": ".wav"},
+        "eval": {"result_path": str(root / "results/score.csv")},
+        "flow_matching": {**CFM_TRAIN, "batch_size": CLI_BATCH, "path": str(root / "flow_matching"), "epoch": 1,
+                          "summary_interval": 1, "save_interval_epoch": 1},
+        "hifigan": {**GAN_TRAIN, "batch_size": CLI_BATCH, "path": str(root / "hifigan"), "training_epochs": 1,
+                    "summary_interval": 1, "checkpoint_interval": 10000, "validation_interval": 10000},
+        "flow_matching_with_hifigan": {"name": str(root / "no_composite"), "batch_size": EVAL_UTTS},
+    }
+
+
+def cli_phase(torch, np, A, C, M, root: Path) -> dict:
+    """The resynthesis CLI as a user runs it: ``--help`` of both CLIs in
+    subprocesses; then, in this process (so the counters see its launches),
+    ``cli.resynth.main(["all", "--config", ...])`` on a 24 kHz
+    LibriTTS-R-shaped tree of CLI_FILES files at the widths of
+    configs/resynth/mhubert-expresso-2000.yaml (seeded random weights, the
+    stand-in scorers: no Whisper or UTMOS checkpoint) and ``main(["synthesize",
+    ...])``. The checks of tests/test_cli_chain.py: the 16 kHz wavs, the unit
+    JSONs, the mels, both exports, the 7-line score CSV, every resynthesized
+    file at the length its units give; and the launches: 11 K1 + 1 K4 per
+    tokenize batch, 4 K1 per CFM step, 64 K1 + 9 K2 per decoder batch (the
+    CFM save's dev sweep, ``evaluate``, ``synthesize``), 11 K1 + 1 K4 per
+    ``synthesize`` encoder batch."""
+    import yaml
+
+    from speech_resynth_torch.cli import resynth as cli
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.models.hubert import HubertConfig
+    from speech_resynth_torch.pipeline.data import UnitDataset
+
+    t0 = time.perf_counter()
+    helps = {}
+    for module in ("speech_resynth_torch.cli.resynth", "speech_resynth_torch.cli.speechlm"):
+        proc = subprocess.run([sys.executable, "-m", module, "--help"], capture_output=True, text=True, timeout=120,
+                              cwd=str(Path(__file__).resolve().parent))
+        helps[module] = proc.returncode
+        if proc.returncode or "--device" not in proc.stdout:
+            fail(f"{module} --help: exit {proc.returncode}, {proc.stderr[-2000:]}")
+    lengths = write_libritts_tree(np, audio_io, root / "orig", CLI_FILES, CLI_TRAIN, CLI_DEV)
+    path = root / "config.yaml"
+    path.write_text(yaml.safe_dump(cli_resynth_config(root)))
+    record = {"phase": "cli", "help_exit_codes": helps, "files": CLI_FILES, "batch": CLI_BATCH}
+
+    A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t1 = time.perf_counter()
+    cli.main(["all", "--config", str(path)])
+    torch.cuda.synchronize()
+    record["all_seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cli.main(["synthesize", "--config", str(path)])
+    torch.cuda.synchronize()
+    record["synthesize_seconds"] = time.perf_counter() - t1
+    launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+
+    splits = {"train": CLI_TRAIN, "dev": CLI_DEV, "test": CLI_FILES - CLI_TRAIN - CLI_DEV}
+    tokenize_batches = [min(PRE_TOKENIZE_BATCH, n - i) for n in splits.values() for i in range(0, n, PRE_TOKENIZE_BATCH)]
+    wavs = sorted((root / "16k").glob("**/*.wav"))
+    units = {split: json.loads((root / f"units/{split}.json").read_text()) for split in splits}
+    mels = list((root / "16k" / "spectrogram").glob("**/*.npy"))
+    exports = [root / "hifigan", root / "flow_matching" / "hf"]
+    csv = (root / "results/score.csv").read_text().splitlines()
+    # the decoder batches: the CFM save's dev sweep and evaluate (each one batch, its bucket), synthesize's (30-s padding)
+    dev_frames = [b["input_ids"].shape[1] for b in UnitDataset(str(root / "units/dev.json")).batches(8, shuffle=False, drop_last=False)]
+    test_frames = [b["input_ids"].shape[1] for b in UnitDataset(str(root / "units/test.json")).batches(EVAL_UTTS, shuffle=False, drop_last=False)]
+    hubert, voc = HubertConfig(), HifiGanConfig()
+    outs = {}
+    for wav in wavs:
+        if "test-clean" in str(wav):
+            name = wav.relative_to(root / "16k")
+            out = root / "resynth" / name
+            want = int(voc.waveform_lengths(hubert.num_frames(audio_io.info(wav)[2])))
+            outs[str(name)] = {"info": list(audio_io.info(out)) if out.is_file() else None, "want": [SAMPLE_RATE, 1, want]}
+    want = {
+        "flash_attention": 11 * len(tokenize_batches) + 2 * 4 + 64 * (len(dev_frames) + len(test_frames)) + 11 + 64,
+        "codebook_assign": len(tokenize_batches) + 1, "mrf_branch": 9 * (len(dev_frames) + len(test_frames) + 1), "mrf_stage": 0,
+    }
+    record.update(launches=launches, expected=want, tokenize_batches=tokenize_batches,
+                  dev_frames=dev_frames, test_frames=test_frames, wavs=len(wavs), units={k: len(v) for k, v in units.items()},
+                  mels=len(mels), csv_lines=len(csv), resynthesized=outs, seconds=time.perf_counter() - t0)
+    print(json.dumps(record))
+    if (len(wavs) != CLI_FILES or {k: len(v) for k, v in units.items()} != splits or len(mels) != CLI_FILES
+            or not all((e / "pytorch_model.bin").is_file() and (e / "config.json").is_file() for e in exports)
+            or len(csv) != 7 or len(outs) != splits["test"] or any(o["info"] != o["want"] for o in outs.values())):
+        fail(f"cli.resynth all + synthesize: {record}")
+    if launches != want:
+        fail(f"cli.resynth launched {launches}, expected {want}")
+    frames = [hubert.num_frames(n) for n in (audio_io.info(w)[2] for w in wavs)]
+    return {"launches": launches, "tokenize_batches": tokenize_batches, "dev_frames": dev_frames, "test_frames": test_frames,
+            "key_frames": [min(frames), max(frames)], "synthesize_batch": splits["test"]}
+
+
+def entry_phase(torch, A, M) -> dict:
+    """``graft_entry.entry()`` on the card: the flagship decoder at reference
+    sizes on its seeded (2, 128) ids. One warm-up call, then one counted and
+    timed call: 64 K1 (16 ODE steps x 4 layers) and 9 K2, finite waves of
+    ``HifiGanConfig.waveform_lengths`` samples."""
+    from speech_resynth_torch import graft_entry
+
+    fn, (ids, generator) = graft_entry.entry()
+    fn(ids, generator)
+    torch.cuda.synchronize()
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    wave, lengths = fn(ids, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                "mrf_stage": M.mrf_stage_kernel.launches}
+    want = graft_entry.VOCODER_CONFIG.waveform_lengths(torch.full((ids.shape[0],), ids.shape[1], device="cuda"))
+    record = {"phase": "entry", "ids": list(ids.shape), "ms": ms, "launches": launches, "lengths": lengths.tolist(),
+              "wave": list(wave.shape), "audio_seconds_per_s": float(lengths.sum()) / SAMPLE_RATE / (ms / 1e3)}
+    print(json.dumps(record))
+    if (launches != {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0} or not torch.equal(lengths, want)
+            or wave.device.type != "cuda" or not torch.isfinite(wave.float()).all()):
+        fail(f"graft_entry.entry(): {record}")
+    return {"launches": launches, "ids": list(ids.shape)}
+
+
+def e2e_branch_shapes(e2e, scale: str):
+    """(vocoder config, the (C, T, K) of K2's launches per vocoder call) of
+    the quality run's generator, evaluated in f32 on EVAL_PAD_FRAMES frames:
+    its branches that K2 takes (``ResidualBlock.fused``)."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.hifigan import HifiGanConfig, HifiGanGenerator
+
+    p = e2e.SCALES[scale]
+    voc = HifiGanConfig(upsample_initial_channel=p["gan_channels"], resblock_kernel_sizes=(3, 7),
+                        resblock_dilation_sizes=((1, 3), (1, 3)))
+    blocks = HifiGanGenerator(voc, FLOAT32).resblocks
+    shapes, t, per_stage = [], e2e.EVAL_PAD_FRAMES, len(voc.resblock_kernel_sizes)
+    for i, (rate, kernel) in enumerate(zip(voc.upsample_rates, voc.upsample_kernel_sizes)):
+        t = (t - 1) * rate - 2 * ((kernel - rate) // 2) + kernel
+        for blk, k in zip(blocks[i * per_stage : (i + 1) * per_stage], voc.resblock_kernel_sizes):
+            if blk.fused:
+                shapes.append((voc.upsample_initial_channel // 2 ** (i + 1), t, k))
+    return voc, shapes
+
+
+def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) -> dict:
+    """``run_e2e_quality(root, scale)`` on the card: the three loops on the
+    synthetic corpora, then the held-out measures, with the JAX test's gates
+    (tests/test_e2e_quality.py): GAN mel-L1 trained <= 1.05 x untrained, CFM
+    trained < 0.7 x untrained, resynthesis finite and < 1.5 x the untrained
+    GAN's, pair accuracy > 0.9. The launches: K2 (f32) in every vocoder
+    call of the measures (3 per held-out utterance), K1 causal in the pair
+    scoring (a batch of 16 a forward) where the LM's head dim is one K1
+    takes (64 at scale "chip", 32 at "ci": the plain version); none in
+    training (the CFM's head dim 32 and the LM's "xla" take the plain
+    version; the generator records a gradient). Printed beside the JAX
+    package's numbers of E2E_QUALITY.md."""
+    from speech_resynth_torch.pipeline import e2e_quality as E
+    from speech_resynth_torch.pipeline.data import load_named_units_from_json
+
+    A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = E.run_e2e_quality(root, scale=scale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    p = E.SCALES[scale]
+    voc, branches = e2e_branch_shapes(E, scale)
+    scoring = [list(b["input_ids"].shape) for b in load_named_units_from_json(str(root / "lm_corpus" / "lm_pairs.json"), 16, 2)]
+    k1_per_forward = p["lm_layers"] if p["lm_hidden"] // 2 in A.FLASH_HEAD_DIMS else 0  # 2 heads
+    want = {"flash_attention": k1_per_forward * len(scoring), "codebook_assign": 0,
+            "mrf_branch": 3 * p["n_eval"] * len(branches), "mrf_stage": 0}
+    r = results
+    gates = {
+        "gan": bool(np.isfinite(r["gan_mel_l1_trained"]) and r["gan_mel_l1_trained"] <= 1.05 * r["gan_mel_l1_untrained"]),
+        "cfm": bool(r["cfm_mel_l1_trained"] < 0.7 * r["cfm_mel_l1_untrained"]),
+        "resynth": bool(np.isfinite(r["resynth_mel_l1"]) and r["resynth_mel_l1"] < 1.5 * r["gan_mel_l1_untrained"]),
+        "lm": bool(r["lm_pair_accuracy"] > 0.9),
+    }
+    record = {"phase": "e2e_quality", "scale": scale, "wall_seconds": wall, "results": results, "gates": gates,
+              "jax_package_chip_scale": JAX_E2E_QUALITY, "launches": launches, "expected": want}
+    print(json.dumps(record))
+    if not all(gates.values()) or launches != want:
+        fail(f"e2e quality: {record}")
+    return {"launches": launches, "branches": branches, "scoring_shapes": scoring if k1_per_forward else [], "vocoder": voc,
+            "n_eval": p["n_eval"], "k1_per_forward": k1_per_forward, "head_dim": p["lm_hidden"] // 2, "results": results,
+            "wall_seconds": wall}
+
+
 KERNEL_GROUPS = (
     ("flash_attention (K1)", ("flash_fwd",)),
     ("codebook_assign (K4)", ("codebook_assign", "unpack_ids")),
@@ -3224,6 +3508,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
         loops = train_loops_phase(torch, np, A, M, Path(train_tmp))
     lap("train_loops_phase")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_tmp:
+        cli = cli_phase(torch, np, A, C, M, Path(cli_tmp))
+    lap("cli_phase")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_loop_") as loop_tmp:
         lm_batch = lm_train_batch(torch, np, Path(loop_tmp))
         k1.append(k1_lm_train_phase(torch, F, A, lm_batch))
@@ -3244,6 +3531,11 @@ def main() -> int:
         evaluation = evaluate_phase(torch, np, A, M, Path(eval_tmp), asr, mos)
         del asr, mos
     lap("evaluate_phase")
+    entry_run = entry_phase(torch, A, M)
+    lap("entry_phase")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as e2e_tmp:
+        e2e = e2e_quality_phase(torch, np, A, C, M, Path(e2e_tmp))
+    lap("e2e_quality_phase")
     torch.cuda.synchronize()
 
     # data-dependent shapes, held after their runs: the duration config's 64-multiple
@@ -3292,6 +3584,26 @@ def main() -> int:
     bound, frames = lm_loop["generate_decoder"]
     k1.append(attention_shape(torch, F, A, gen, "speechlm loop generate decoder", 1, 2, bound, 128, frames, frames))
     k2.append(mrf_path(torch, F, M, gen, voc_cfg, "speechlm loop generate decoder", bound, 1))
+    # the CLI's: its tokenize and synthesize encoder batches (K1, K4), its CFM steps (K1), its decoder batches
+    # (the dev sweep, evaluate, synthesize: K1, K2); graft_entry's decoder; the quality run's f32 vocoder
+    # calls (K2 at its widths and dilations) and its pair scoring (K1 causal)
+    for b in sorted(set(cli["tokenize_batches"] + [cli["synthesize_batch"]]) - set(preprocess["batches"])):
+        k1.append(attention_shape(torch, F, A, gen, "cli encoder", b, 12, RESYNTH_FRAMES, 64, *cli["key_frames"]))
+        k4.append(codebook_shape(torch, C, gen, "cli encoder", b * RESYNTH_FRAMES, ENCODER[2]))
+    k1.append(attention_shape(torch, F, A, gen, "cli cfm training", CLI_BATCH, 2, CFM_TRAIN["frames_per_seg"], 128, 40,
+                              CFM_TRAIN["frames_per_seg"]))
+    B_ = cli["synthesize_batch"]
+    for frames in sorted(set(cli["dev_frames"] + cli["test_frames"] + [RESYNTH_FRAMES])):
+        k1.append(attention_shape(torch, F, A, gen, "cli decoder", B_, 2, frames, 128, frames // 2, frames))
+        k2.append(mrf_path(torch, F, M, gen, voc_cfg, "cli decoder", frames, B_))
+    k1.append(attention_shape(torch, F, A, gen, "entry decoder", *entry_run["ids"][:1], 2, entry_run["ids"][1], 128,
+                              entry_run["ids"][1], entry_run["ids"][1]))
+    k2.append(mrf_path(torch, F, M, gen, voc_cfg, "entry decoder", entry_run["ids"][1], entry_run["ids"][0]))
+    if e2e["branches"]:
+        k2.append(mrf_path(torch, F, M, gen, e2e["vocoder"], "e2e quality vocoder (f32 on the path)", 48, 1, e2e["branches"]))
+    for B_, L_ in sorted(set(map(tuple, e2e["scoring_shapes"]))):
+        k1.append(attention_shape(torch, F, A, gen, "e2e quality pair scoring", B_, 2, L_, e2e["head_dim"], L_, L_, causal=True,
+                                  masked=False))
 
     # the shape of every launch counted above, from each path's structure and frames
     by_path = {
@@ -3308,6 +3620,8 @@ def main() -> int:
         "speechlm_loop_eval": lm_loop["eval"],
         **{f"speechlm_loop_generate_{k}": v for k, v in lm_loop["generate"].items()},
         "whisper": whisper, "utmos": utmos, **{f"evaluate_{k}": v["launches"] for k, v in evaluation["runs"].items()},
+        "cli_resynth": cli["launches"], "cli_speechlm_eval": lm_loop["cli_eval"], "cli_speechlm_generate": lm_loop["cli_generate"],
+        "entry": entry_run["launches"], "e2e_quality": e2e["launches"],
     }
     shapes: dict = {}
 
@@ -3383,6 +3697,21 @@ def main() -> int:
             decoder_batch(f"evaluate_{label}", frames, batch=EVAL_UTTS)
         for shape, n in run["whisper_shapes"] + run["utmos_shapes"]:
             add("flash_attention", f"evaluate_{label}", shape, n)
+    for b in cli["tokenize_batches"] + [cli["synthesize_batch"]]:
+        encoder_batch("cli_resynth", RESYNTH_FRAMES, batch=b)
+    add("flash_attention", "cli_resynth", [CLI_BATCH, 2, CFM_TRAIN["frames_per_seg"], 128], 2 * 4)  # 2 CFM steps
+    for frames, b in [(f, CLI_DEV) for f in cli["dev_frames"]] + [(f, cli["synthesize_batch"]) for f in cli["test_frames"] + [RESYNTH_FRAMES]]:
+        decoder_batch("cli_resynth", frames, batch=b)
+    for B_, L_ in loop_scoring["test"]:
+        add("flash_attention", "cli_speechlm_eval", [B_, 12, L_, 64], 12)
+    encoder_batch("cli_speechlm_generate", ENC_FRAMES, batch=1, layers=6, centers=CONT_ENCODER[2])
+    decoder_batch("cli_speechlm_generate", bound, batch=1)
+    decoder_batch("entry", entry_run["ids"][1], batch=entry_run["ids"][0])
+    for _ in range(3 * e2e["n_eval"]):
+        for C_, T_, K_ in e2e["branches"]:
+            add("mrf_branch", "e2e_quality", [1, C_, T_, K_], 1)
+    for B_, L_ in e2e["scoring_shapes"]:
+        add("flash_attention", "e2e_quality", [B_, 2, L_, e2e["head_dim"]], e2e["k1_per_forward"])
     for kernel, per_path in shapes.items():
         for path, counts in per_path.items():
             if sum(counts.values()) != by_path[path][kernel]:

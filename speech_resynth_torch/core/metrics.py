@@ -9,10 +9,12 @@ speech_resynth_tpu/core/metrics.py the training loops use).
   (``record_function``); the loops name their steps ``cfm_train_step`` and
   ``hifigan_train_step``, as the JAX loops do.
 
-* ``step_flops`` / ``mfu``: the speech-LM step's FLOP count and its model
-  FLOPs utilization. The JAX module reads the count from XLA's cost
-  analysis; here it is counted from the Llama config and the batch (see
-  ``step_flops``).
+* ``step_flops`` / ``cfm_step_flops`` / ``hifigan_step_flops`` / ``mfu``:
+  the FLOP counts of the speech-LM, CFM and HiFi-GAN training steps and
+  their model FLOPs utilization. The JAX module reads the counts from XLA's
+  cost analysis, which also counts elementwise work; here they are counted
+  from the configs and the batch shape: matmuls and convolutions only, at
+  2 FLOPs per multiply-add, on one process's share of the global batch.
 """
 
 from __future__ import annotations
@@ -196,3 +198,117 @@ def mfu(flops_per_step: float, step_time_s: float, device=None) -> float:
     if peak <= 0 or step_time_s <= 0 or flops_per_step <= 0:
         return 0.0
     return flops_per_step / step_time_s / peak
+
+
+def cfm_forward_flops(config, batch_size: int, frames: int) -> float:
+    """FLOPs of one CFM velocity-field forward on a (batch_size, frames) batch:
+
+        per frame  2 * (dim_in + dim_cond_emb) * h        input projection of x and the unit embedding
+                 + 2 * h * k_pos * h / groups              depthwise positional conv
+                 + depth * (6 h^2 + 2 h^2 + 18 h F         qkv, out, the feed-forward's two k=3 convs
+                            + 4 * N * heads * dim_head)    QK^T and PV over the N frames
+                 + 4 h^2 per back-half layer with U-Net skips (the skip combiner)
+                 + 2 * h * dim_in                          output projection
+        per row    2 * (h + 1) * h + depth * 2 * 2 h^2     the time MLP and the adaptive norms' gains
+
+    with h = hidden_size, F = intermediate_size. The duration predictor's
+    conv (6 * dim_cond_emb per token) is left out, as are norms, rotary,
+    softmax and activations (elementwise work)."""
+    h, f, n = config.hidden_size, config.intermediate_size, frames
+    per_layer = 8 * h * h + 18 * h * f + 4 * n * h
+    skips = config.depth // 2 if config.use_unet_skip_connection else 0
+    per_frame = (
+        2 * (config.dim_in + config.dim_cond_emb) * h
+        + 2 * h * config.conv_pos_embed_kernel_size * (h // config.conv_pos_embed_groups)
+        + config.depth * per_layer
+        + skips * 4 * h * h
+        + 2 * h * config.dim_in
+    )
+    per_row = 2 * (h + 1) * h + config.depth * 4 * h * h
+    return float(batch_size * (n * per_frame + per_row))
+
+
+def cfm_step_flops(config, batch_size: int, frames: int, remat: bool = False) -> float:
+    """FLOPs of one CFM training step on a (batch_size, frames) batch:
+
+        step       = 3 * forward            (the backward is twice the forward)
+        with remat: 4 * forward             (the forward once more)
+
+    with forward = ``cfm_forward_flops``. The first products (the input
+    projection of the noisy mel and the frozen unit table, the time MLP)
+    compute no input gradient, so the true count is slightly lower (<1% at
+    the YAML's widths); the optimizer is left out (elementwise work)."""
+    return cfm_forward_flops(config, batch_size, frames) * (4 if remat else 3)
+
+
+def _conv_out(length: int, kernel: int, stride: int = 1, padding: int = 0, dilation: int = 1) -> int:
+    return (length + 2 * padding - dilation * (kernel - 1) - 1) // stride + 1
+
+
+def hifigan_generator_flops(config, batch_size: int, frames: int) -> float:
+    """FLOPs of one generator forward on (batch_size, frames) mel frames:
+    conv_pre (k 7), each stage's transposed conv (2 * T_in * C_in * C_out *
+    k) and its MRF branches (per dilation two convs of 2 * T * C^2 * k),
+    conv_post (k 7)."""
+    c, t = config.upsample_initial_channel, frames
+    total = 2 * t * config.model_in_dim * c * 7
+    for rate, kernel in zip(config.upsample_rates, config.upsample_kernel_sizes):
+        total += 2 * t * c * (c // 2) * kernel
+        t = (t - 1) * rate - 2 * ((kernel - rate) // 2) + kernel
+        c //= 2
+        for k, dilations in zip(config.resblock_kernel_sizes, config.resblock_dilation_sizes):
+            total += len(dilations) * 2 * 2 * t * c * c * k
+    total += 2 * t * c * 7
+    return float(batch_size * total)
+
+
+def discriminator_flops(batch_size: int, samples: int) -> float:
+    """FLOPs of MPD and MSD (``models.hifigan``'s widths) on one batch of
+    (batch_size, samples) waves: every conv at 2 * out positions * C_out *
+    C_in / groups * k."""
+    from ..models.hifigan import PERIOD_CHANNELS, SCALE_SPECS
+
+    total = 0
+    for period in (2, 3, 5, 7, 11):
+        h = -(-samples // period)  # reflect-padded to a multiple of the period
+        chans = (1, *PERIOD_CHANNELS)
+        for c_in, c_out in zip(chans, chans[1:]):
+            h = _conv_out(h, 5, 3, 2)
+            total += 2 * h * period * c_out * c_in * 5
+        h = _conv_out(h, 5, 1, 2)
+        total += 2 * h * period * chans[-1] * chans[-1] * 5
+        total += 2 * _conv_out(h, 3, 1, 1) * period * chans[-1] * 3
+    length = samples
+    for scale in range(3):
+        if scale:
+            length = _conv_out(length, 4, 2, 2)  # the average pool between scales
+        t, c_in = length, 1
+        for c_out, k, stride, padding, groups in SCALE_SPECS:
+            t = _conv_out(t, k, stride, padding)
+            total += 2 * t * c_out * (c_in // groups) * k
+            c_in = c_out
+        total += 2 * _conv_out(t, 3, 1, 1) * c_in * 3
+    return float(batch_size * total)
+
+
+def hifigan_step_flops(config, batch_size: int, frames: int) -> float:
+    """FLOPs of one HiFi-GAN training step on (batch_size, frames) mel frames
+    and their waves (``config.waveform_lengths(frames)`` samples), as
+    ``train.hifigan``'s step runs it:
+
+        G forward                                    G
+        D on the real and the detached fake wave,
+          forward and backward                       3 * 2 D
+        D on the fake again, forward and the
+          backward into G (D frozen: input grads)    2 D
+        the feature-matching forward on the real     D
+        G backward                                   2 G
+        step                                         3 G + 9 D
+
+    with G = ``hifigan_generator_flops`` and D = ``discriminator_flops`` of
+    one batch of waves. The first conv of each network computes no input
+    gradient, so the true count is slightly lower. The STFT of the mel loss
+    is FFT work and left out (the port computes it as a product with a DFT
+    basis, ~0.35 MFLOP a frame); so is the elementwise work."""
+    samples = int(config.waveform_lengths(frames))
+    return 3 * hifigan_generator_flops(config, batch_size, frames) + 9 * discriminator_flops(batch_size, samples)

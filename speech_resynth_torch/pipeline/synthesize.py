@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.device import DeviceLike
 from ..dsp import audio_io
 from ..models.composite import ConditionalFlowMatchingWithHifiGan
 from ..models.speech_encoder import SpeechEncoder
@@ -25,9 +26,11 @@ def synthesize(
     config,
     encoder: Optional[SpeechEncoder] = None,
     decoder: Optional[ConditionalFlowMatchingWithHifiGan] = None,
+    device: DeviceLike = None,
 ) -> None:
     """Resynthesize ``config.synthesis.src_dir`` into ``config.synthesis.tgt_dir``.
-    Without ``encoder`` / ``decoder`` they are loaded from the config (on the card)."""
+    Without ``encoder`` / ``decoder`` they are loaded from the config on
+    ``device`` (the card unless ``"cpu"``)."""
     dataset = SpeechDataset(
         config.synthesis.src_dir,
         split=config.synthesis.split,
@@ -39,11 +42,12 @@ def synthesize(
             config.flow_matching.quantizer_model_name,
             config.flow_matching.vocab_size,
             deduplicate=bool(config.flow_matching.get("predict_duration", False)),
+            device=device,
         )
     if decoder is None:
         from .evaluate import _load_decoder
 
-        decoder = _load_decoder(config)
+        decoder = _load_decoder(config, device=device)
 
     tgt_dir = Path(config.synthesis.tgt_dir)
     dt = float(config.flow_matching.dt)

@@ -42,7 +42,9 @@ one length.
 Exports are ``config.json`` + ``pytorch_model.bin`` with the HF keys the JAX
 package exports, so ``ConditionalFlowMatchingWithHifiGan.load_pretrained``
 serves a trained pair. Batches reach the device through ``prefetch``;
-metrics are read back (a host sync) only every ``summary_interval`` steps.
+metrics are read back (a host sync) only every ``summary_interval`` steps,
+with the steps per second and the MFU of the analytic FLOP counts of
+``core.metrics`` (``train/MFU``, ``training/MFU``; 0.0 on the CPU).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ import torch.distributed as dist
 from ..core.checkpoint import CheckpointManager
 from ..core.device import DeviceLike, resolve_device
 from ..core.mesh import DATA_AXIS, data_coordinates, distributed_init, dp_mesh_for_batch, host_local_copy, make_mesh, process_index
-from ..core.metrics import MetricsWriter, StepTimer, mfu, step_flops, trace_span
+from ..core.metrics import MetricsWriter, StepTimer, cfm_step_flops, hifigan_step_flops, mfu, step_flops, trace_span
 from ..core.precision import DEFAULT
 from ..core.rng import RngStream
 from ..dsp import audio_io
@@ -252,6 +254,8 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
                     step_time = timer.synced_step_time(step)
                     if step_time:
                         writer.scalar("train/steps_per_sec", 1.0 / step_time, step)
+                        flops = cfm_step_flops(model_config, *batch["spectrogram_labels"].shape[:2], model_config.remat)
+                        writer.scalar("train/MFU", mfu(flops, step_time, device), step)
             if epoch % trainer_config.save_interval_epoch == 0:
                 if process_index() == 0:
                     try:
@@ -357,6 +361,8 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
                     step_time = timer.synced_step_time(step)
                     if step_time:
                         writer.scalar("training/steps_per_sec", 1.0 / step_time, step)
+                        flops = hifigan_step_flops(model_config, *batch["mel"].shape[:2])
+                        writer.scalar("training/MFU", mfu(flops, step_time, device), step)
                 if step % trainer_config.checkpoint_interval == 0:
                     _save(ckpt, step, state)
                     if rank0:

@@ -14,7 +14,9 @@ each stepped by ``train.common.make_optimizer`` as the trainer steps. The
 CFM trainer's step, with dropout and the duration loss on rows of different
 frame and token counts, and the HiFi-GAN trainer's, on 2 processes against
 one; ``train_speechlm`` and ``train_flow_matching`` as torchrun would start
-them on 2 processes against one process.
+them on 2 processes against one process. The spawn of 4 also takes the
+entry module's dry run (``graft_entry.dryrun_steps``: the CFM and HiFi-GAN
+data-parallel steps, the LM's DP x TP, FSDP x TP, SP and PP steps).
 
 Two steps each; f32. Tolerances: each step's loss rtol 1e-5; the parameters
 after the two AdamW updates atol 2e-6 (summation orders differ between the
@@ -37,6 +39,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from speech_resynth_torch import graft_entry
 from speech_resynth_torch.core import mesh as M
 from speech_resynth_torch.core.checkpoint import CheckpointManager
 from speech_resynth_torch.core.config import config_from_dict
@@ -345,6 +348,14 @@ def _worker(rank, world, port, queue, loop_roots):
             if rank == 0:
                 queue.put(("loop", lm_loop))
                 queue.put(("cfm_loop", cfm_loop))
+        if world == 4:  # graft_entry's dry run: every step of graft_entry.dryrun_multichip(4)
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            t0 = time.perf_counter()
+            steps = graft_entry.dryrun_steps("cpu")
+            torch.set_num_threads(threads)
+            if rank == 0:
+                queue.put(("dryrun", {"steps": steps, "seconds": time.perf_counter() - t0}))
     finally:
         dist.destroy_process_group()
 
@@ -397,6 +408,15 @@ def test_layout_step_equals_the_single_process_step(results, case):
         assert r["held"] == n * (9 + 3) and r["ref_params"] == 2 * 9 + 3
     else:
         assert r["held"] == n * r["ref_params"]
+
+
+def test_dryrun_multichip_steps_on_four_processes(results):
+    """``graft_entry.dryrun_multichip(4)``'s steps, each loss finite."""
+    r = results["dryrun"]
+    assert [name for name, _ in r["steps"]] == [
+        "CFM DP", "HiFi-GAN DP D->G", "speech-LM dp x tp", "speech-LM fsdp x tp", "speech-LM sp x dp", "speech-LM pp x dp"
+    ]
+    assert all(np.isfinite(loss) for _, loss in r["steps"]), r
 
 
 def test_losses_fall_over_the_steps(results):
