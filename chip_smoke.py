@@ -96,13 +96,24 @@
    checkpoint; calls ``graft_entry.entry()`` (the flagship decoder, 64 K1 +
    9 K2, timed); runs ``run_e2e_quality`` (scale ``E2E_SCALE``) with the JAX
    test's quality gates, beside the JAX package's numbers of E2E_QUALITY.md;
-17. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
+17. runs the JAX package's tools as a user does, each a process through
+   its module entry point: ``scripts.convert_checkpoints`` of all five kinds
+   from sources written from seeded full-width models (mHuBERT as
+   ``pytorch_model.bin`` and ``model.safetensors``, 2 000 centers as
+   ``.npy``, a composite, the UTMOS ``.ckpt`` and the Whisper directory of
+   step 15), the outputs loaded on the card equal to their sources (units,
+   audio from the same noise, state dicts); ``scripts.fit_kmeans`` (k =
+   2000 on 16 files with the converted mHuBERT: K1) and an encode through
+   the fitted codebook (K4); ``scripts.gan_longrun run`` at full width (K2
+   in its validations), ``report`` on its event files, ``resume-check``
+   (bit-equal after SIGKILL);
+18. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
    tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
    CFM loop's dev sweep, the trained pair's decoder, the LM loop's scoring
    and generation, evaluate's decoder, the CLI's encoder and decoder
    batches, the entry's decoder, the quality run's f32 vocoder and pair
-   scoring), profiles device time by kernel group, prints the
-   script's wall time and one ``{"kernels": [...]}`` line (launches of every path above, the
+   scoring, fit_kmeans's encoder, gan_longrun's validation), profiles
+   device time by kernel group, prints the script's wall time and one ``{"kernels": [...]}`` line (launches of every path above, the
    shape of every counted launch, and the times of each kernel at every
    timed shape) and, last, the ``{"ok": true, ...}`` line.
 
@@ -146,6 +157,8 @@ STREAM_FRAMES = 500  # 10 s of mel
 LM_BATCH, LM_TOKENS = 16, 256  # the LM scoring shape (configs/speechlm/hubert.yaml widths)
 CONT_ENCODER = ("hubert-base-ls960", "kmeans", 100)  # configs/speechlm/hubert.yaml s2u
 CONT_NEW_TOKENS = 128
+# the profiled decodes' tokens: the profiler's processing of an eager decode took ~100 s at 128 tokens
+PROFILE_TOKENS = 32
 
 SLM21_PAIRS = 96  # pairs per sLM21 task
 SLM21_BATCH = 96  # configs/speechlm/hubert.yaml dataloader.batch_size_per_device
@@ -1648,8 +1661,8 @@ def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
                         "plain_ms_per_token": plain_ms / CONT_NEW_TOKENS, "speculative_ms": spec_ms, "plain_ms": plain_ms}
     print(json.dumps({"phase": "continuation_speculative_speed", "prompt_tokens": prompt.shape[1], "new_tokens": CONT_NEW_TOKENS,
                       "note": "prefill included; B = 1; bf16", **speed}))
-    profile_phase(torch, "lm_greedy_decode", lambda: greedy_decode(lm, prompt, CONT_NEW_TOKENS), 1)
-    profile_phase(torch, "lm_lookup_decode", lambda: lookup_decode(lm, prompt, CONT_NEW_TOKENS), 1)
+    profile_phase(torch, "lm_greedy_decode", lambda: greedy_decode(lm, prompt, PROFILE_TOKENS), 1)
+    profile_phase(torch, "lm_lookup_decode", lambda: lookup_decode(lm, prompt, PROFILE_TOKENS), 1)
     results["speed"] = speed
     del enc, lm, dec
     torch.cuda.empty_cache()
@@ -2212,7 +2225,9 @@ def loop_run(loop: str, config: dict, stop_at: int = -1, env: Optional[dict] = N
 
 def generator_hash(hashlib, torch, path: Path) -> str:
     """sha256 over the exported generator's tensors in key order (16 hex digits)."""
-    sd = torch.load(path / "pytorch_model.bin", map_location="cpu", weights_only=True)
+    from speech_resynth_torch.core.safetensors import load_file
+
+    sd = load_file(path / "model.safetensors")
     h = hashlib.sha256()
     for k in sorted(sd):
         h.update(k.encode())
@@ -3261,7 +3276,7 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
                   mels=len(mels), csv_lines=len(csv), resynthesized=outs, seconds=time.perf_counter() - t0)
     print(json.dumps(record))
     if (len(wavs) != CLI_FILES or {k: len(v) for k, v in units.items()} != splits or len(mels) != CLI_FILES
-            or not all((e / "pytorch_model.bin").is_file() and (e / "config.json").is_file() for e in exports)
+            or not all((e / "model.safetensors").is_file() and (e / "config.json").is_file() for e in exports)
             or len(csv) != 7 or len(outs) != splits["test"] or any(o["info"] != o["want"] for o in outs.values())):
         fail(f"cli.resynth all + synthesize: {record}")
     if launches != want:
@@ -3361,6 +3376,234 @@ def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) ->
     return {"launches": launches, "branches": branches, "scoring_shapes": scoring if k1_per_forward else [], "vocoder": voc,
             "n_eval": p["n_eval"], "k1_per_forward": k1_per_forward, "head_dim": p["lm_hidden"] // 2, "results": results,
             "wall_seconds": wall}
+
+
+# Each tool in a process of its own through its module entry point, as a user
+# runs it (``python -m speech_resynth_torch.scripts.<tool>``); at exit the
+# process prints its kernels' launch counts on a last line of its own.
+TOOL_RUN = """
+import atexit, json, runpy, sys
+from speech_resynth_torch.ops import attention as A, codebook as C, fused_mrf as M
+atexit.register(lambda: print("launches", json.dumps({"flash_attention": A.flash_attention.launches,
+    "codebook_assign": C.assign_kernel.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+    "mrf_stage": M.mrf_stage_kernel.launches}), flush=True))
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+FIT_FILES, FIT_ITERS = 16, 5  # fit_kmeans: 16 files of 8-10 s, padded to 20 s in 2 batches of 8 (999 frames)
+GAN_RUN = ("--batch", "16", "--n-utts", "64")  # gan_longrun: 4 steps an epoch on a 64-utterance corpus
+GAN_EPOCHS, GAN_VAL = 3, 6  # 12 steps, validations at steps 6 and 12
+
+
+def tool_start(module: str, *args, env: Optional[dict] = None):
+    import os
+
+    return subprocess.Popen([sys.executable, "-c", TOOL_RUN, f"speech_resynth_torch.scripts.{module}", *map(str, args)],
+                            cwd=str(Path(__file__).resolve().parent), env=dict(os.environ, **(env or {})),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tool_result(proc, what: str, timeout: int = 600) -> tuple:
+    """(the tool's stdout lines, its launches); fails on a non-zero exit."""
+    so, se = proc.communicate(timeout=timeout)
+    lines = so.strip().splitlines()
+    if proc.returncode or not lines or not lines[-1].startswith("launches "):
+        fail(f"{what} failed ({proc.returncode}): {so[-2000:]} {se[-3000:]}")
+    return lines[:-1], json.loads(lines[-1].split(" ", 1)[1])
+
+
+def tools_phase(torch, np, A, C, M, root: Path) -> dict:
+    """The JAX package's tools as the port runs them, each a process:
+    ``convert_checkpoints`` of every kind from sources written from the
+    port's seeded full-width models (mHuBERT as ``pytorch_model.bin`` and as
+    ``model.safetensors``, its 2 000 x 768 centers as ``.npy``, a composite
+    as ``pytorch_model.bin``, the UTMOS ``.ckpt`` and the Whisper large-v3
+    directory of the eval phases), the outputs loaded on the card and held
+    against their sources (units, audio from the same noise, state dicts);
+    ``fit_kmeans`` on 16 speech-like files with the converted mHuBERT (K1),
+    its codebook encoding through ``by_name`` (K4); ``gan_longrun run`` at
+    full width (K2 in its validations), ``report`` on its event files and
+    ``resume-check`` (SIGKILL after a mid-epoch checkpoint, then resume;
+    bit-equal generators)."""
+    import dataclasses
+
+    from speech_resynth_torch.core.precision import BF16_INFERENCE, FLOAT32
+    from speech_resynth_torch.core.safetensors import load_file, save_file
+    from speech_resynth_torch.core.tbevents import read_scalars
+    from speech_resynth_torch.dsp import audio_io
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
+    from speech_resynth_torch.models.convert import hubert_state_dict_from_hf
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.models.hubert import HubertConfig, HubertEncoder
+    from speech_resynth_torch.models.kmeans import KMeansQuantizer
+    from speech_resynth_torch.models.speech_encoder import SpeechEncoder
+    from speech_resynth_torch.models.whisper import whisper_state_dict_from_hf
+    from speech_resynth_torch.pipeline import train_loops
+    from speech_resynth_torch.pipeline.data import MelDataset
+    from speech_resynth_torch.pipeline.scorers import NativeUTMOS, NativeWhisperASR
+
+    record = {"phase": "tools"}
+    dense, _, vocab = ENCODER
+    src, out = root / "tool_sources", root / "tool_outputs"
+    src.mkdir()
+
+    # the sources: an HF mHuBERT (positional conv weight-normed, as HF keeps it) and its centers, a composite
+    t0 = time.perf_counter()
+    seeded = SpeechEncoder.by_name(*ENCODER, checkpoint_dir=str(root / "no-encoders"), policy=FLOAT32, device="cpu")
+    hf = dict(seeded.encoder.state_dict())
+    w = hf.pop("encoder.pos_conv_embed.conv.weight")
+    hf["encoder.pos_conv_embed.conv.weight_v"] = w
+    hf["encoder.pos_conv_embed.conv.weight_g"] = torch.sqrt(torch.sum(w * w, dim=(0, 1), keepdim=True))
+    centers = seeded.quantizer.centers.numpy()
+    del seeded
+    for fmt in ("bin", "safetensors"):
+        (src / f"hubert_{fmt}").mkdir()
+    torch.save(hf, src / "hubert_bin" / "pytorch_model.bin")
+    save_file(hf, src / "hubert_safetensors" / "model.safetensors")
+    np.save(src / "centers.npy", centers)
+    pair = ConditionalFlowMatchingWithHifiGan.from_config(CFMConfig(vocab_size=2000), HifiGanConfig(), FLOAT32,
+                                                          generator=torch.Generator().manual_seed(3), device="cpu")
+    (src / "composite").mkdir()
+    (src / "composite" / "config.json").write_text(json.dumps(
+        {"model_config": dataclasses.asdict(pair.model.config), "vocoder_config": dataclasses.asdict(pair.vocoder.config)}))
+    torch.save({**{f"model.{k}": v for k, v in pair.model.state_dict().items()},
+                **{f"vocoder.{k}": v for k, v in pair.vocoder.state_dict().items()}}, src / "composite" / "pytorch_model.bin")
+    del pair
+    record["sources_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    procs = {
+        "hubert_bin": tool_start("convert_checkpoints", "hubert", "--src", src / "hubert_bin", "--name", dense, "--out", out / "bin"),
+        "hubert": tool_start("convert_checkpoints", "hubert", "--src", src / "hubert_safetensors", "--name", dense,
+                             "--out", out / "models"),
+        "kmeans": tool_start("convert_checkpoints", "kmeans", "--src", src / "centers.npy", "--name", dense,
+                             "--out", out / "models"),
+        "composite": tool_start("convert_checkpoints", "composite", "--src", src / "composite", "--out", out / "composite"),
+        "utmos": tool_start("convert_checkpoints", "utmos", "--src", root / "utmos.ckpt", "--out", out / "utmos.safetensors"),
+        "whisper": tool_start("convert_checkpoints", "whisper", "--src", root / "whisper-large-v3", "--out", out / "whisper"),
+    }
+    for name, proc in procs.items():
+        lines, launches = tool_result(proc, f"convert_checkpoints ({name})")
+        if not lines or not lines[-1].startswith("wrote ") or any(launches.values()):
+            fail(f"convert_checkpoints ({name}): {lines} {launches}")
+    record["convert_seconds"] = time.perf_counter() - t0
+
+    # the outputs through the port's loaders on the card, against their sources
+    t0 = time.perf_counter()
+    want = hubert_state_dict_from_hf(hf)
+    for path in (out / "bin" / f"{dense}.safetensors", out / "models" / f"{dense}.safetensors"):
+        got = load_file(path)
+        if sorted(got) != sorted(hf) or not all(torch.equal(got[k], v) for k, v in hf.items()):
+            fail(f"convert_checkpoints hubert: {path} differs from its source")
+    tower = HubertEncoder(HubertConfig(), BF16_INFERENCE)  # the source model, built as by_name builds it
+    tower.load_state_dict(want)
+    source = SpeechEncoder(tower.cuda().eval().requires_grad_(False), KMeansQuantizer(torch.from_numpy(centers)).to("cuda"), 11)
+    converted = SpeechEncoder.by_name(*ENCODER, checkpoint_dir=str(out / "models"), device="cuda")
+    waves, lengths = padded(np, speechlike_waves(np, np.random.default_rng(72), ENC_BATCH))
+    A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    units = [e(waves, lengths)["units"] for e in (source, converted)]
+    decoders = [ConditionalFlowMatchingWithHifiGan.from_pretrained(d, device="cuda") for d in (src / "composite", out / "composite")]
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    ids = torch.randint(1, 2001, (SERVE_BATCH, BUCKET), generator=gen, device="cuda")
+    ids[1:, BUCKET * 7 // 8 :] = 0
+    x0 = torch.randn((SERVE_BATCH, BUCKET, decoders[0].model.config.dim_in), generator=gen, device="cuda")
+    audio = [d.synthesize(ids, dt=0.0625, truncation_value=1.0, x0=x0)[0] for d in decoders]
+    torch.cuda.synchronize()
+    convert_launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                        "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    held = {
+        "encoder_state": all(torch.equal(v, converted.encoder.state_dict()[k]) for k, v in source.encoder.state_dict().items()),
+        "centers": torch.equal(converted.quantizer.centers.cpu(), torch.from_numpy(centers)),
+        "units": torch.equal(*units), "audio": torch.equal(*audio) and bool(torch.isfinite(audio[0].float()).all()),
+    }
+    del source, converted, decoders
+    utmos = [NativeUTMOS(p).model.state_dict() for p in (root / "utmos.ckpt", out / "utmos.safetensors")]
+    held["utmos_state"] = sorted(utmos[0]) == sorted(utmos[1]) and all(torch.equal(v, utmos[1][k]) for k, v in utmos[0].items())
+    del utmos
+    asr = NativeWhisperASR(out / "whisper")
+    whisper_want = whisper_state_dict_from_hf(load_file(root / "whisper-large-v3" / "model.safetensors"))
+    got = asr.model.state_dict()
+    held["whisper_state"] = sorted(got) == sorted(whisper_want) and all(torch.equal(got[k].cpu(), v.to(got[k].dtype))
+                                                                              for k, v in whisper_want.items())
+    held["whisper_files"] = all((out / "whisper" / p.name).read_bytes() == p.read_bytes()
+                                for p in (root / "whisper-large-v3").iterdir() if p.suffix != ".safetensors")
+    del asr, got, whisper_want
+    torch.cuda.empty_cache()
+    expected = {"flash_attention": 2 * (11 + 64), "codebook_assign": 2, "mrf_branch": 2 * 9, "mrf_stage": 0}
+    record.update(loaders_seconds=time.perf_counter() - t0, convert_held=held, convert_launches=convert_launches)
+    if not all(held.values()) or convert_launches != expected:
+        fail(f"convert_checkpoints outputs: {held}, launches {convert_launches} (expected {expected})")
+
+    # fit_kmeans with the converted mHuBERT, then its codebook through by_name
+    t0 = time.perf_counter()
+    fit_dir = root / "fit_wavs"
+    fit_waves = speechlike_waves(np, np.random.default_rng(74), FIT_FILES)
+    for i, wave in enumerate(fit_waves):
+        audio_io.write(fit_dir / f"f{i:02d}.wav", wave, SAMPLE_RATE)
+    npz = out / "models" / f"{dense}-kmeans-fit-{vocab}.npz"
+    lines, fit_launches = tool_result(tool_start(
+        "fit_kmeans", "--wav-dir", fit_dir, "--dense-model", dense, "--vocab", vocab, "--iters", FIT_ITERS, "--out", npz,
+        env={"SPEECH_RESYNTH_MODELS": str(out / "models")}), "fit_kmeans")
+    record["fit_kmeans_seconds"] = time.perf_counter() - t0
+    frames = sum(HubertConfig().num_frames(len(w)) for w in fit_waves)
+    inertia = float(lines[-2].split()[-1]) if len(lines) >= 3 and lines[-2].startswith("inertia: ") else math.nan
+    fitted = np.load(npz)["centers"]
+    fit_batches = -(-FIT_FILES // 8)
+    record["fit_kmeans"] = {"lines": lines[-3:], "frames": frames, "inertia": inertia, "centers": [list(fitted.shape), str(fitted.dtype)],
+                            "launches": fit_launches}
+    if (lines[-3] != f"fitting k={vocab} on {frames} frames of dim 768" or not math.isfinite(inertia)
+            or fitted.shape != (vocab, 768) or fitted.dtype != np.float32 or not np.isfinite(fitted).all()
+            or fit_launches != {"flash_attention": 11 * fit_batches, "codebook_assign": 0, "mrf_branch": 0, "mrf_stage": 0}):
+        fail(f"fit_kmeans: {record['fit_kmeans']}")
+    encoder = SpeechEncoder.by_name(dense, "kmeans-fit", vocab, checkpoint_dir=str(out / "models"), device="cuda")
+    A.flash_attention.launches = C.assign_kernel.launches = 0
+    fit_units = encoder(waves, lengths)["units"]
+    torch.cuda.synchronize()
+    fit_encode = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches}
+    del encoder
+    if fit_encode != {"flash_attention": 11, "codebook_assign": 1} or int(fit_units.max()) >= vocab:
+        fail(f"the fitted codebook's encode: {fit_encode}")
+
+    # gan_longrun: run, report, resume-check
+    work = root / "gan"
+    t0 = time.perf_counter()
+    _, gan_launches = tool_result(tool_start("gan_longrun", "run", work, *GAN_RUN, "--epochs", GAN_EPOCHS,
+                                                 "--summary-interval", 1, "--val-interval", GAN_VAL), "gan_longrun run", 900)
+    record["gan_run_seconds"] = time.perf_counter() - t0
+    corpus = work / "corpus"
+    dev = MelDataset(str(corpus / "wavs"), str(corpus / "spec"), train_loops._mel_file_list(str(corpus / "train.json")),
+                     16080, 400, 320, False)
+    dev_batches = [list(b["mel"].shape[:2]) for b in dev.padded_batches(8, max_utts=32, with_wav=False)]
+    validations = GAN_EPOCHS * 4 // GAN_VAL
+    if gan_launches != {"flash_attention": 0, "codebook_assign": 0, "mrf_branch": 9 * len(dev_batches) * validations, "mrf_stage": 0}:
+        fail(f"gan_longrun run launched {gan_launches}; dev batches {dev_batches} x {validations} validations")
+    t0 = time.perf_counter()
+    tool_result(tool_start("gan_longrun", "report", work), "gan_longrun report")
+    record["gan_report_seconds"] = time.perf_counter() - t0
+    scalars = read_scalars(work / "run" / "logs")
+    tags = ("training/loss_gen", "training/loss_disc", "training/mel_error", "training/lr", "validation/mel_spec_error")
+    curves = {t: len(scalars.get(t, ())) for t in tags}
+    report = (work / "report.md").read_text().splitlines()
+    rate = [l for l in report if l.startswith("- steps ")]
+    record["gan_longrun"] = {"launches": gan_launches, "dev_batches": dev_batches, "validations": validations, "events": curves,
+                             "report_header": report[0], "report_rows": sum(l.startswith("| ") for l in report) - 1,
+                             "rate_line": rate, "nonfinite_line": report[-1]}
+    if (curves != {**dict.fromkeys(tags[:4], GAN_EPOCHS * 4), tags[4]: validations}
+            or not all(math.isfinite(v) for t in tags for _, v, _ in scalars[t])
+            or report[0] != "| step | loss_gen | loss_disc | mel_error | lr | mel_spec_error | wall steps/s |"
+            or not report[-1].startswith("- non-finite scalar events: none") or not rate):
+        fail(f"gan_longrun report: {record['gan_longrun']}")
+    t0 = time.perf_counter()
+    lines, _ = tool_result(tool_start("gan_longrun", "resume-check", work, *GAN_RUN), "gan_longrun resume-check", 900)
+    record["resume_check_seconds"] = time.perf_counter() - t0
+    verdict = json.loads(next(l for l in reversed(lines) if l.startswith('{"kill_step"')))
+    record["resume_check"] = verdict
+    print(json.dumps(record))
+    if not verdict["step_exact"] or verdict["kill_step"] != 6 or verdict["total_steps"] != 16:
+        fail(f"gan_longrun resume-check: {verdict}")
+    return {"convert": convert_launches, "fit_kmeans": fit_launches, "fit_batches": fit_batches, "fit_encode": fit_encode,
+            "gan_longrun": gan_launches, "dev_batches": dev_batches, "validations": validations}
 
 
 KERNEL_GROUPS = (
@@ -3530,7 +3773,9 @@ def main() -> int:
         lap("utmos_phase")
         evaluation = evaluate_phase(torch, np, A, M, Path(eval_tmp), asr, mos)
         del asr, mos
-    lap("evaluate_phase")
+        lap("evaluate_phase")
+        tools = tools_phase(torch, np, A, C, M, Path(eval_tmp))  # converts the Whisper and UTMOS files written above
+    lap("tools_phase")
     entry_run = entry_phase(torch, A, M)
     lap("entry_phase")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as e2e_tmp:
@@ -3604,6 +3849,14 @@ def main() -> int:
     for B_, L_ in sorted(set(map(tuple, e2e["scoring_shapes"]))):
         k1.append(attention_shape(torch, F, A, gen, "e2e quality pair scoring", B_, 2, L_, e2e["head_dim"], L_, L_, causal=True,
                                   masked=False))
+    # the quality run's pair scoring at scale chip (its own call: python -m speech_resynth_torch.pipeline.e2e_quality <dir> chip)
+    k1.append(attention_shape(torch, F, A, gen, "e2e quality pair scoring (scale chip)", 16, 2, 32, 64, 32, 32, causal=True,
+                              masked=False))
+    # the tools: fit_kmeans's encoder (the padded batch, no mask), gan_longrun's validation batches (K2); the
+    # conversion's encoder and decoder batches are the encoder's and serving's shapes, held above
+    k1.append(attention_shape(torch, F, A, gen, "fit_kmeans encoder (no mask)", 8, 12, 999, 64, 999, 999, masked=False))
+    for b, frames in sorted(set(map(tuple, tools["dev_batches"]))):
+        k2.append(mrf_path(torch, F, M, gen, voc_cfg, "gan_longrun validation", frames, b))
 
     # the shape of every launch counted above, from each path's structure and frames
     by_path = {
@@ -3622,6 +3875,8 @@ def main() -> int:
         "whisper": whisper, "utmos": utmos, **{f"evaluate_{k}": v["launches"] for k, v in evaluation["runs"].items()},
         "cli_resynth": cli["launches"], "cli_speechlm_eval": lm_loop["cli_eval"], "cli_speechlm_generate": lm_loop["cli_generate"],
         "entry": entry_run["launches"], "e2e_quality": e2e["launches"],
+        "tools_convert": tools["convert"], "tools_fit_kmeans": tools["fit_kmeans"], "tools_fit_encode": tools["fit_encode"],
+        "tools_gan_longrun": tools["gan_longrun"],
     }
     shapes: dict = {}
 
@@ -3712,6 +3967,14 @@ def main() -> int:
             add("mrf_branch", "e2e_quality", [1, C_, T_, K_], 1)
     for B_, L_ in e2e["scoring_shapes"]:
         add("flash_attention", "e2e_quality", [B_, 2, L_, e2e["head_dim"]], e2e["k1_per_forward"])
+    for _ in range(2):  # the source's and the converted encoder and decoder
+        encoder_batch("tools_convert", ENC_FRAMES)
+        decoder_batch("tools_convert", BUCKET)
+    add("flash_attention", "tools_fit_kmeans", [8, 12, 999, 64], 11 * tools["fit_batches"])
+    encoder_batch("tools_fit_encode", ENC_FRAMES)
+    for _ in range(tools["validations"]):
+        for b, frames in tools["dev_batches"]:
+            vocoder_call("tools_gan_longrun", frames, b, False)
     for kernel, per_path in shapes.items():
         for path, counts in per_path.items():
             if sum(counts.values()) != by_path[path][kernel]:

@@ -1,8 +1,8 @@
 """Training metrics and profiler spans (the part of
 speech_resynth_tpu/core/metrics.py the training loops use).
 
-* ``MetricsWriter``: TensorBoard scalars, audio and spectrogram figures
-  through tensorboardX when it is importable, a no-op otherwise.
+* ``MetricsWriter``: TensorBoard scalars, audio and spectrogram figures,
+  written by the port's own event-file writer (``core.tbevents``).
 * ``StepTimer``: step times and throughput; ``synced_step_time`` measures
   between host syncs, so asynchronous dispatch cannot flatter it.
 * ``trace_span``: a named range on the ``torch.profiler`` timeline
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import struct
 import time
 from pathlib import Path
 from typing import Optional
@@ -28,60 +29,57 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .tbevents import EventWriter, audio_value, image_value, scalar_value
+
 
 class MetricsWriter:
-    """TensorBoard writer; a no-op when disabled or without tensorboardX."""
+    """TensorBoard scalars, audio and spectrogram figures in event files
+    written by ``core.tbevents`` (no tensorboardX, which the card's machine
+    lacks); a no-op when disabled (every rank but 0)."""
 
     def __init__(self, log_dir: str | Path, enabled: bool = True):
-        self._writer = None
-        if enabled:
-            try:
-                from tensorboardX import SummaryWriter
-            except ImportError:
-                return
-            self._writer = SummaryWriter(str(log_dir))
+        self._writer = EventWriter(log_dir) if enabled else None
 
     def scalar(self, tag: str, value, step: int) -> None:
         if self._writer is not None:
-            self._writer.add_scalar(tag, float(value), step)
+            self._writer.add([scalar_value(tag, float(value))], step)
 
     def scalars(self, values: dict, step: int, prefix: str = "") -> None:
         for k, v in values.items():
             self.scalar(f"{prefix}{k}", v, step)
 
     def audio(self, tag: str, waveform, step: int, sample_rate: int = 16000) -> None:
-        """A PCM16 WAV summary, encoded with scipy (tensorboardX's own needs soundfile)."""
+        """A PCM16 WAV summary, encoded with scipy."""
         if self._writer is None:
             return
         from scipy.io import wavfile
-        from tensorboardX.proto.summary_pb2 import Summary
 
         wav = np.clip(np.asarray(waveform, np.float32).reshape(-1), -1.0, 1.0)
         buf = io.BytesIO()
         wavfile.write(buf, sample_rate, (wav * 32767).astype(np.int16))
-        audio = Summary.Audio(
-            sample_rate=sample_rate,
-            num_channels=1,
-            length_frames=len(wav),
-            encoded_audio_string=buf.getvalue(),
-            content_type="audio/wav",
-        )
-        self._writer.file_writer.add_summary(Summary(value=[Summary.Value(tag=tag, audio=audio)]), step)
+        self._writer.add([audio_value(tag, buf.getvalue(), sample_rate, 1, len(wav))], step)
 
     def spectrogram_figure(self, tag: str, spectrogram, step: int) -> None:
-        """A mel-spectrogram heatmap."""
+        """A mel-spectrogram heatmap as a PNG image summary; nothing where
+        matplotlib does not import (the card's machine)."""
         if self._writer is None:
             return
-        import matplotlib
-
+        try:
+            import matplotlib
+        except ImportError:
+            return
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
         fig, ax = plt.subplots(figsize=(10, 2))
         im = ax.imshow(np.asarray(spectrogram), aspect="auto", origin="lower", interpolation="none")
         plt.colorbar(im, ax=ax)
-        self._writer.add_figure(tag, fig, step)
+        buf = io.BytesIO()
+        fig.savefig(buf, format="png")
         plt.close(fig)
+        png = buf.getvalue()
+        width, height = struct.unpack(">II", png[16:24])  # the IHDR chunk
+        self._writer.add([image_value(tag, png, height, width, 4)], step)  # colorspace 4: RGBA
 
     def memory(self, step: int, device=None, prefix: str = "memory/") -> None:
         """The card's memory in use and its peak, in GB (the reference logs

@@ -32,7 +32,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..core.safetensors import load_hf_state_dict
+from ..core.safetensors import load_hf_state_dict, save_file
 
 
 def _np(x) -> np.ndarray:
@@ -302,10 +302,10 @@ def hubert_state_dict_from_hf(state_dict: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def save_pretrained(model_dir, state_dict: Mapping[str, torch.Tensor], config: dict) -> None:
-    """Write ``config.json`` and ``pytorch_model.bin`` (f32 CPU tensors), each
-    through a temporary file renamed into place, so a reader never sees a
-    half-written file. A ``model.safetensors`` left in the directory would
-    shadow the new weights in ``load_checkpoint`` and is removed."""
+    """Write ``config.json`` and ``model.safetensors`` (f32 CPU tensors,
+    ``core.safetensors``), the layout of the JAX package's
+    ``models/export.py:save_pretrained``, each through a temporary file
+    renamed into place, so a reader never sees a half-written file."""
     import json
     import os
 
@@ -314,10 +314,9 @@ def save_pretrained(model_dir, state_dict: Mapping[str, torch.Tensor], config: d
     tmp = model_dir / "config.json.tmp"
     tmp.write_text(json.dumps(config, indent=2))
     os.replace(tmp, model_dir / "config.json")
-    tmp = model_dir / "pytorch_model.bin.tmp"
-    torch.save({k: v.detach().float().cpu().contiguous() for k, v in state_dict.items()}, tmp)
-    os.replace(tmp, model_dir / "pytorch_model.bin")
-    (model_dir / "model.safetensors").unlink(missing_ok=True)
+    tmp = model_dir / "model.safetensors.tmp"
+    save_file({k: v.detach().float().cpu().contiguous() for k, v in state_dict.items()}, tmp)
+    os.replace(tmp, model_dir / "model.safetensors")
 
 
 def load_checkpoint(model_dir: Path) -> Dict[str, torch.Tensor]:
@@ -464,19 +463,8 @@ def save_composite_pretrained(model_dir, model, vocoder) -> None:
     ``model.safetensors`` (f32) with the CFM's keys under ``model.`` and the
     generator's (its input statistics included) under ``vocoder.``."""
     import dataclasses
-    import json
-    import os
 
-    from ..core.safetensors import save_file
-
-    model_dir = Path(model_dir)
-    model_dir.mkdir(parents=True, exist_ok=True)
-    sd = {f"model.{k}": v.detach().float() for k, v in model.state_dict().items()}
-    sd.update({f"vocoder.{k}": v.detach().float() for k, v in vocoder.state_dict().items()})
+    sd = {f"model.{k}": v for k, v in model.state_dict().items()}
+    sd.update({f"vocoder.{k}": v for k, v in vocoder.state_dict().items()})
     config = {"model_config": dataclasses.asdict(model.config), "vocoder_config": dataclasses.asdict(vocoder.config)}
-    tmp = model_dir / "config.json.tmp"
-    tmp.write_text(json.dumps(config, indent=2))
-    os.replace(tmp, model_dir / "config.json")
-    tmp = model_dir / "model.safetensors.tmp"
-    save_file(sd, tmp)
-    os.replace(tmp, model_dir / "model.safetensors")
+    save_pretrained(model_dir, sd, config)

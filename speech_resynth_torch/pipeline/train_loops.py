@@ -39,9 +39,9 @@ frames or tokens (the CFM's noise, flow times and dropout masks drawn for
 the global batch), the GAN averages, its losses being means over crops of
 one length.
 
-Exports are ``config.json`` + ``pytorch_model.bin`` with the HF keys the JAX
-package exports, so ``ConditionalFlowMatchingWithHifiGan.load_pretrained``
-serves a trained pair. Batches reach the device through ``prefetch``;
+Exports are ``config.json`` + ``model.safetensors`` (f32) with the HF keys,
+the files the JAX package exports, so
+``ConditionalFlowMatchingWithHifiGan.load_pretrained`` serves a trained pair. Batches reach the device through ``prefetch``;
 metrics are read back (a host sync) only every ``summary_interval`` steps,
 with the steps per second and the MFU of the analytic FLOP counts of
 ``core.metrics`` (``train/MFU``, ``training/MFU``; 0.0 on the CPU).
@@ -539,7 +539,7 @@ def train_speechlm(config, device: DeviceLike = None) -> dict:
 
 def _export_speechlm(config, model_config: LlamaConfig, params: dict) -> None:
     """An HF ``LlamaForCausalLM`` directory at ``<model.path>/hf``: the JAX
-    export's ``config.json`` keys, the weights as ``pytorch_model.bin``.
+    export's ``config.json`` keys, the weights as ``model.safetensors``.
     ``params`` is the host copy of the LM's state dict (its keys are HF's)."""
     save_pretrained(
         Path(config.model.path) / "hf",

@@ -268,7 +268,7 @@ def cli_chain(tmp_path, monkeypatch):
 def test_resynth_cli_full_chain_on_cpu(cli_chain):
     """``all`` then ``synthesize`` through ``main``, as tests/test_cli_chain.py
     drives the JAX CLI: preprocessing, both trainers' exports (the port's
-    ``pytorch_model.bin``), the six-row score CSV and the resynthesized file."""
+    ``model.safetensors``), the six-row score CSV and the resynthesized file."""
     root, cfg_path = cli_chain
     torch_resynth.main(["all", "--config", str(cfg_path), "--device", "cpu"])
 
@@ -277,7 +277,7 @@ def test_resynth_cli_full_chain_on_cpu(cli_chain):
     assert len(units) == 4
     assert len(list((root / "spec").glob("**/*.npy"))) == 6
     for export in (root / "hifigan", root / "cfm/hf"):
-        assert (export / "pytorch_model.bin").is_file() and (export / "config.json").is_file()
+        assert (export / "model.safetensors").is_file() and (export / "config.json").is_file()
     csv = (root / "results/score.csv").read_text().splitlines()
     assert len(csv) == 7  # header + 6 metric rows
 
@@ -314,7 +314,7 @@ def _lm_yaml(root: Path) -> Path:
 def test_speechlm_cli_trains_then_evaluates_on_cpu(tmp_path):
     cfg_path = _lm_yaml(tmp_path)
     torch_speechlm.main(["train", "--config", str(cfg_path), "--device", "cpu"])
-    assert (tmp_path / "model/hf/pytorch_model.bin").is_file()
+    assert (tmp_path / "model/hf/model.safetensors").is_file()
     assert sorted(int(p.name) for p in (tmp_path / "model/ckpt").iterdir() if p.name.isdigit()) == [4]
     torch_speechlm.main(["eval", "--config", str(cfg_path), "--device", "cpu"])
     for task, name in (("lexical", "swuggy_test"), ("syntactic", "sblimp_test")):

@@ -253,7 +253,7 @@ def test_e2e_quality_plumbing_at_a_small_scale(tmp_path, monkeypatch, narrow_dis
     assert results["lm_pairs"] == 200 and 0.0 <= results["lm_pair_accuracy"] <= 1.0
     assert json.loads((tmp_path / "E2E_QUALITY.json").read_text()) == results
     for export in (tmp_path / "hifigan", tmp_path / "cfm" / "hf"):
-        assert (export / "pytorch_model.bin").is_file()
+        assert (export / "model.safetensors").is_file()
 
 
 @pytest.mark.slow

@@ -465,7 +465,7 @@ def test_train_speechlm_on_two_processes_equals_one(results, loop_roots):
     assert two["metrics"]["loss"] == pytest.approx(one["metrics"]["loss"], rel=LOSS_RTOL)
     states = _checkpoints((loop_roots["lm_one"], loop_roots["lm_two"]), "model", [4, 8])
     for root in (loop_roots["lm_one"], loop_roots["lm_two"]):
-        assert (root / "model" / "hf" / "pytorch_model.bin").is_file()
+        assert (root / "model" / "hf" / "model.safetensors").is_file()
     for k, v in states[0].items():
         np.testing.assert_allclose(states[1][k].numpy(), v.numpy(), rtol=0, atol=PARAM_ATOL, err_msg=k)
 
@@ -480,7 +480,7 @@ def test_train_flow_matching_on_two_processes_equals_one(results, loop_roots):
     for k, v in one["metrics"].items():
         assert two["metrics"][k] == pytest.approx(v, rel=LOSS_RTOL), k
     states = _checkpoints((loop_roots["cfm_one"], loop_roots["cfm_two"]), "model", [2, 4])
-    assert (loop_roots["cfm_two"] / "model" / "hf" / "pytorch_model.bin").is_file()
+    assert (loop_roots["cfm_two"] / "model" / "hf" / "model.safetensors").is_file()
     for k, v in states[0].items():
         np.testing.assert_allclose(states[1][k].numpy(), v.numpy(), rtol=0, atol=PARAM_ATOL, err_msg=k)
 

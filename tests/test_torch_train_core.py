@@ -283,24 +283,26 @@ def test_checkpoint_keeps_the_newest_and_ignores_leftovers(tmp_path):
 
 
 def test_metrics_writer_is_a_no_op_without_tensorboardx(tmp_path, monkeypatch):
-    """tensorboardX writes event files where it is importable; where it is not
-    (the card's machine), or when disabled, the writer does nothing."""
+    """The writer writes its event files itself (``core.tbevents``), so it
+    writes them where tensorboardX does not import (the card's machine);
+    disabled (every rank but 0), it does nothing."""
     import sys
 
     from speech_resynth_torch.core.metrics import MetricsWriter
+    from speech_resynth_torch.core.tbevents import read_scalars
 
-    pytest.importorskip("tensorboardX")
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # import fails
     writer = MetricsWriter(tmp_path / "on")
     writer.scalars({"loss": torch.tensor(1.5), "lr": 1e-3}, 3, prefix="train/")
     writer.audio("a", np.zeros(160, np.float32), 3)
     writer.close()
-    assert any((tmp_path / "on").iterdir())
-    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # import fails
-    for off in (MetricsWriter(tmp_path / "absent"), MetricsWriter(tmp_path / "disabled", enabled=False)):
-        off.scalar("loss", 1.0, 1)
-        off.audio("a", np.zeros(160, np.float32), 1)
-        off.close()
-    assert not (tmp_path / "absent").exists() and not (tmp_path / "disabled").exists()
+    scalars = {tag: [(step, value) for step, value, _ in events] for tag, events in read_scalars(tmp_path / "on").items()}
+    assert scalars == {"train/loss": [(3, 1.5)], "train/lr": [(3, pytest.approx(1e-3))]}
+    off = MetricsWriter(tmp_path / "disabled", enabled=False)
+    off.scalar("loss", 1.0, 1)
+    off.audio("a", np.zeros(160, np.float32), 1)
+    off.close()
+    assert not (tmp_path / "disabled").exists()
 
 
 def test_step_timer_and_trace_span():

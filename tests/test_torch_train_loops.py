@@ -179,7 +179,7 @@ def test_train_flow_matching_checkpoints_and_resumes(trained_cfm):
     assert all(np.isfinite(v) for v in second["metrics"].values()) and set(second["metrics"]) == {
         "loss", "mse", "duration_loss", "grad_norm"}
     hf = Path(cfg.flow_matching.path) / "hf"
-    assert (hf / "pytorch_model.bin").is_file() and not (hf / "model.safetensors").exists()
+    assert (hf / "model.safetensors").is_file() and not (hf / "pytorch_model.bin").exists()
     config = json.loads((hf / "config.json").read_text())
     assert list(config) == [f.name for f in dataclasses.fields(JaxCFMConfig)]
     model = ConditionalFlowMatchingModel(CFMConfig(**{k: config[k] for k in config}), FLOAT32)

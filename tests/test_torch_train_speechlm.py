@@ -336,14 +336,14 @@ def test_train_speechlm_resumes_equal_to_a_straight_run(trained):
 
 
 def test_the_export_loads_in_both_packages(trained):
-    """<model.path>/hf, as the JAX loop writes it (pytorch_model.bin here),
+    """<model.path>/hf, as the JAX loop writes it (model.safetensors),
     loads through the port's and the JAX package's ``load_lm_from_hf`` and
     gives the checkpoint's logits."""
     roots, _, _ = trained
     hf = roots["straight"] / "model" / "hf"
     config = json.loads((hf / "config.json").read_text())
     assert config["architectures"] == ["LlamaForCausalLM"] and config["vocab_size"] == 24 and config["torch_dtype"] == "float32"
-    assert (hf / "pytorch_model.bin").is_file() and not (hf / "model.safetensors").exists()
+    assert (hf / "model.safetensors").is_file() and not (hf / "pytorch_model.bin").exists()
     _, state = _checkpoint(roots["straight"])
     ref = TL.LlamaLM(TL.LlamaConfig(**{k: config[k] for k in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
                                                                  "num_attention_heads")}), FLOAT32)
