@@ -12,13 +12,20 @@
    HuBERT's and the LM's causal shapes), K2 fused MRF branch, K3 whole MRF
    stage (beside the per-branch route of three K2 launches), K4 k-means
    assignment. Data-dependent shapes (the duration decoder's frame bounds,
-   the continuation decoder's bound) are checked after their runs;
+   the continuation decoder's bound) are checked after their runs; prints the
+   ``init`` record: three named tensors of each model an entry point draws at
+   random, their std beside the std of the rule their model declares;
 4. serves requests of ~500 units through ``SynthesisServer`` at the full
    width of configs/resynth/mhubert-expresso-2000.yaml (random weights from a
    seed, bf16), counts the kernel launches of that run, and checks lengths,
    finiteness and a small-input agreement with the plain path on the CPU;
    then serves one batch with stage fusion on (3 K3, no K2) against the same
-   batch without it;
+   batch without it. The models follow the JAX package's initializers, which
+   leave a random vocoder's output near 1e-5: every comparison of a random
+   model's output is relative to its reference's peak, and every PCM16
+   check runs on a generator whose conv_post weight is scaled by
+   ``WIRE_GAIN`` and fails where under half its codes are nonzero (a random
+   duration predictor, near 0 frames a unit, takes ``DURATION_BIAS``);
 5. encodes 8-10 s waveforms with the full-width mHuBERT + 2000-center
    k-means encoder (random weights from a seed) and checks ids, unit counts,
    launches, padded rows against unpadded runs and the card against the CPU;
@@ -208,6 +215,69 @@ def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
 
 def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+# A model drawn by the JAX package's initializers leaves a random vocoder's
+# output near 1e-5 (conv weights N(0, 0.01)), so its waveforms are compared
+# relative to the reference's peak, and a PCM16 check runs on a generator
+# whose conv_post weight is scaled by WIRE_GAIN (a power of two, exact in
+# bf16): with zero biases and leaky ReLUs the pre-tanh output scales with it,
+# and the codes reach their range instead of all rounding to 0. At 2^18 the
+# streamed mel's peak code is past the former draw's (28 491), so the
+# stream's 1-code check is as strict against the peak as it was.
+WIRE_GAIN = 2.0**18
+WIRE_MIN_NONZERO = 0.5  # the least share of nonzero codes a wire check accepts
+
+
+def as_f64(np, x):
+    """A tensor (any dtype or device) or an array as a float64 array."""
+    if hasattr(x, "detach"):
+        x = x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def rel_err(np, got, want) -> tuple:
+    """(max |got - want| / max |want|, max |want|): the error relative to the
+    reference's peak; infinite when the reference is all zero."""
+    got, want = as_f64(np, got), as_f64(np, want)
+    peak = float(np.abs(want).max()) if want.size else 0.0
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    return (err / peak if peak > 0 else math.inf), peak
+
+
+# The same initializers leave a random duration predictor's log-durations
+# within ~0.04 of 0 (a unit table of std 1/sqrt(768)), so every unit would last
+# round(e^0 - 1) = 0 frames and the duration path would decode empty batches at
+# its 64-frame floor. The duration-predicting decoders of the resynthesis and
+# continuation phases take this bias: every unit lasts round(5 e^eps - 1) = 4
+# frames, so the duration resynthesis of the 32 speech-like files decodes
+# about 100 s of audio in batches of up to ~1 200 frames, and the path's
+# data-dependent frame bounds follow the units' counts as they do with a
+# trained predictor.
+DURATION_BIAS = math.log(1 + 4)
+
+
+def durations_ready(torch, model) -> None:
+    """Set the CFM model's duration-predictor bias to DURATION_BIAS, in place."""
+    with torch.no_grad():
+        model.duration_predictor.conv.bias.fill_(DURATION_BIAS)
+
+
+def wire_ready(torch, vocoder) -> None:
+    """Scale the generator's conv_post weight by WIRE_GAIN, in place."""
+    with torch.no_grad():
+        vocoder.conv_post.weight.mul_(WIRE_GAIN)
+
+
+def wire_share(np, what: str, codes) -> float:
+    """The share of nonzero PCM16 codes in ``codes`` (one array or several);
+    fails below WIRE_MIN_NONZERO, where a wire check would pass on silence."""
+    arrays = [as_f64(np, c).ravel() for c in (codes if isinstance(codes, (list, tuple)) else [codes])]
+    n = sum(a.size for a in arrays)
+    share = sum(int(np.count_nonzero(a)) for a in arrays) / max(n, 1)
+    if share < WIRE_MIN_NONZERO:
+        fail(f"{what}: only {share:.3f} of {n} PCM16 codes are nonzero (at least {WIRE_MIN_NONZERO})")
+    return share
 
 
 ATT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -878,6 +948,9 @@ def resynth_phase(torch, np, A, M, C, enc):
                 CFMConfig(vocab_size=2000, predict_duration=predict_duration), voc_cfg, BF16_INFERENCE,
                 generator=torch.Generator().manual_seed(0), device="cuda",
             )
+            wire_ready(torch, decoder.vocoder)  # the written PCM16 files' codes reach their range
+            if predict_duration:
+                durations_ready(torch, decoder.model)
             encoder = dataclasses.replace(enc, deduplicate=predict_duration)
 
             def config(split, tgt):
@@ -911,7 +984,7 @@ def resynth_phase(torch, np, A, M, C, enc):
 
             # every output file, with the length its frames give (frames recomputed
             # here), and the frames each batch's decoder ran at
-            out_samples, in_samples, frames_seen, decoder_frames = 0, 0, [], []
+            out_samples, in_samples, frames_seen, decoder_frames, written = 0, 0, [], [], []
             for batch in SpeechDataset(str(src), split="test-*").batches(ENC_BATCH):
                 lengths = batch["wavs_len"]
                 in_samples += int(lengths.sum())
@@ -933,19 +1006,90 @@ def resynth_phase(torch, np, A, M, C, enc):
                     want = int(voc_cfg.waveform_lengths(int(f)))
                     if not path.is_file() or audio_io.info(path) != (SAMPLE_RATE, 1, want):
                         fail(f"{label}: {path.name} missing or not {want} samples at 16 kHz")
+                    written.append(audio_io.read(path)[0])
                     out_samples += want
             audio_s = out_samples / SAMPLE_RATE
             print(json.dumps({
                 "phase": f"resynth_{label}", "files": RESYNTH_FILES, "batch": ENC_BATCH,
                 "input_audio_seconds": in_samples / SAMPLE_RATE, "audio_seconds": audio_s, "wall_seconds": wall,
                 "realtime_factor": audio_s / wall, "frames_per_file": [min(frames_seen), max(frames_seen)],
-                "decoder_frames_per_batch": decoder_frames,
+                "decoder_frames_per_batch": decoder_frames, "wire_gain": WIRE_GAIN,
+                "nonzero_code_share": wire_share(np, f"{label} resynthesis files", written),
             }))
             profile_phase(torch, f"resynth_{label}", lambda: synthesize(config("test-a", Path(tmp) / f"prof_{label}"), encoder, decoder), 1)
             results[label] = {"launches": launches, "decoder_frames": decoder_frames}
             del decoder
             torch.cuda.empty_cache()
     return results
+
+
+# (model, tensor, rule) of the init record: three named tensors of each model an
+# entry point draws at random, and the rule its model declares for each
+INIT_TENSORS = (
+    ("vocoder", "conv_pre.weight", ("normal", 0.01)),
+    ("vocoder", "upsampler.0.weight", ("normal", 0.01)),
+    ("vocoder", "resblocks.12.convs1.0.weight", ("normal", 0.01)),
+    ("cfm", "to_cond_emb.weight", ("embed",)),
+    ("cfm", "to_embed.weight", ("lecun",)),
+    ("cfm", "transformer.layers.0.4.conv1.weight", ("lecun",)),
+    ("mpd", "discriminators.0.convs.1.v", ("he",)),
+    ("mpd", "discriminators.4.convs.3.v", ("he",)),
+    ("mpd", "discriminators.2.conv_post.v", ("he",)),
+    ("msd", "discriminators.0.convs.1.weight", ("he",)),
+    ("msd", "discriminators.1.convs.3.v", ("he",)),
+    ("msd", "discriminators.0.convs.5.u", ("normal", 1.0)),
+    ("hubert", "feature_extractor.conv_layers.0.conv.weight", ("he",)),
+    ("hubert", "encoder.pos_conv_embed.conv.weight", ("he",)),
+    ("hubert", "encoder.layers.0.attention.q_proj.weight", ("lecun",)),
+    ("llama", "model.embed_tokens.weight", ("embed",)),
+    ("llama", "model.layers.0.mlp.down_proj.weight", ("lecun",)),
+    ("llama", "lm_head.weight", ("lecun",)),
+)
+
+
+def init_phase(torch, np) -> list:
+    """The random weights of each model a port entry point draws, at full
+    width and through those entry points (``from_config``'s decoder,
+    ``train.hifigan.build_models``' discriminators, ``SpeechEncoder.by_name``'s
+    seeded mHuBERT, the LM trainer's draw): the std of three named tensors of
+    each beside the std of the rule its model declares (the JAX package's
+    initializers), within 4 / sqrt(n) + 0.02 of their ratio; a truncated
+    rule's draw (lecun_normal, he_normal) inside its cut at 2 / 0.8796 of
+    that std."""
+    import warnings
+
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan, init_random_weights
+    from speech_resynth_torch.models.hifigan import HifiGanConfig
+    from speech_resynth_torch.models.llama import LlamaConfig, LlamaLM
+    from speech_resynth_torch.models.speech_encoder import SpeechEncoder
+    from speech_resynth_torch.train.hifigan import build_models
+
+    decoder = ConditionalFlowMatchingWithHifiGan.from_config(CFMConfig(vocab_size=2000), HifiGanConfig(), FLOAT32,
+                                                             generator=torch.Generator().manual_seed(0), device="cpu")
+    _, mpd, msd = build_models(HifiGanConfig(), FLOAT32, seed=0, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded tower's "randomly initialized" warning
+        hubert = SpeechEncoder.by_name(*ENCODER, policy=FLOAT32, device="cpu").encoder
+    llama = LlamaLM(LlamaConfig(), FLOAT32)
+    init_random_weights(llama, torch.Generator().manual_seed(0))
+    models = {"vocoder": decoder.vocoder, "cfm": decoder.model, "mpd": mpd, "msd": msd, "hubert": hubert, "llama": llama}
+    records = []
+    for model, name, rule in INIT_TENSORS:
+        w = as_f64(np, models[model].state_dict()[name])
+        fan_in = math.prod(w.shape[1:])
+        want = {"normal": lambda: rule[1], "embed": lambda: 1 / math.sqrt(w.shape[-1]), "lecun": lambda: math.sqrt(1 / fan_in),
+                "he": lambda: math.sqrt(2 / fan_in)}[rule[0]]()
+        cut = 2 / 0.87962566103423978 * want if rule[0] in ("lecun", "he") else None
+        record = {"model": model, "tensor": name, "shape": list(w.shape), "rule": rule[0], "rule_std": want, "std": float(w.std()),
+                  "mean": float(w.mean()), "max_abs": float(np.abs(w).max()), "cut": cut}
+        records.append(record)
+        if (abs(record["std"] / want - 1) > 4 / math.sqrt(w.size) + 0.02 or abs(record["mean"]) > 4 * want / math.sqrt(w.size)
+                or cut is not None and record["max_abs"] > cut * (1 + 1e-6)):
+            fail(f"init: {record}")
+    print(json.dumps({"phase": "init", "tensors": records}))
+    return records
 
 
 def slice_phase(torch, np, A, M):
@@ -961,6 +1105,7 @@ def slice_phase(torch, np, A, M):
     decoder = ConditionalFlowMatchingWithHifiGan.from_config(
         cfm_cfg, voc_cfg, BF16_INFERENCE, generator=torch.Generator().manual_seed(0), device="cuda"
     )
+    wire_ready(torch, decoder.vocoder)  # the served PCM16 codes reach their range
     server = SynthesisServer(decoder, batch_size=SERVE_BATCH, dt=0.0625, truncation_value=1.0, pcm16=True)
     rng = np.random.default_rng(0)
 
@@ -991,7 +1136,9 @@ def slice_phase(torch, np, A, M):
     audio_s = sum(len(w) for w in wavs) / 16000.0
     print(json.dumps({
         "phase": "slice", "requests": len(seqs), "batch": SERVE_BATCH, "units": [int(min(map(len, seqs))), int(max(map(len, seqs)))],
-        "audio_seconds": audio_s, "wall_seconds": wall, "realtime_factor": audio_s / wall,
+        "audio_seconds": audio_s, "wall_seconds": wall, "realtime_factor": audio_s / wall, "wire_gain": WIRE_GAIN,
+        "nonzero_code_share": wire_share(np, "served PCM16", wavs),
+        "peak_code": int(max(np.abs(w.astype(np.int32)).max() for w in wavs)),
     }))
 
     # f32 waveforms of one batch are finite
@@ -1016,14 +1163,17 @@ def slice_phase(torch, np, A, M):
         mel, _ = dec.model.sample(ids, 0.0625, 1.0, x0=x0.to(device))
         w, n = dec.synthesize(small, dt=0.0625, truncation_value=1.0, x0=x0)
         outs[device] = (mel.cpu(), w.cpu(), n.cpu())
-    mel_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
-    wav_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+    mel_err, mel_peak = rel_err(np, outs["cuda"][0], outs["cpu"][0])
+    wav_err, wav_peak = rel_err(np, outs["cuda"][1], outs["cpu"][1])
     # f32 on both sides (TF32 off); the sums run in another order on the card.
-    # log-mels are O(10), waveforms O(1)
-    tol = {"mel": 2e-3, "wav": 2e-3}
-    print(json.dumps({"phase": "slice_vs_cpu_plain", "mel_max_abs_err": mel_err, "wav_max_abs_err": wav_err, "tol": tol}))
+    # Errors relative to the CPU reference's peak: log-mels of O(10) (5e-5 is
+    # at least as strict as the former absolute 2e-3 for any peak up to 40),
+    # waveforms in [-1, 1] (2e-3 of a peak of at most 1)
+    tol = {"mel": 5e-5, "wav": 2e-3}
+    print(json.dumps({"phase": "slice_vs_cpu_plain", "mel_max_rel_err": mel_err, "wav_max_rel_err": wav_err,
+                      "mel_ref_peak": mel_peak, "wav_ref_peak": wav_peak, "tol": tol}))
     if not torch.equal(outs["cuda"][2], outs["cpu"][2]) or mel_err > tol["mel"] or wav_err > tol["wav"]:
-        fail(f"card f32 synthesis differs from the CPU plain path: mel {mel_err}, waveform {wav_err}")
+        fail(f"card f32 synthesis differs from the CPU plain path: mel {mel_err}, waveform {wav_err} (relative)")
 
     profile_phase(torch, "serving", lambda: server.synthesize_many(seqs[: 2 * SERVE_BATCH]), 2)
     return launches
@@ -1035,7 +1185,7 @@ def serving_fused_phase(torch, np, A, M, voc_cfg):
     without fusion. bf16: the stage rounds the branch mean once where the
     per-branch route rounds each branch, its sum and its mean, a few bf16
     ulps of the O(1) activations at each of the three narrow stages
-    (tol 5e-2 on samples in [-1, 1])."""
+    (5e-2 of the per-branch waveforms' peak)."""
     from speech_resynth_torch.core.precision import BF16_INFERENCE
     from speech_resynth_torch.models.cfm import CFMConfig
     from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
@@ -1066,17 +1216,17 @@ def serving_fused_phase(torch, np, A, M, voc_cfg):
     print(json.dumps({"phase": "serving_fused_launches", "launches": launches, "expected": expected}))
     if launches != expected:
         fail(f"fused serving launches {launches} != expected {expected} (64 K1 + 3 K3 per batch)")
-    tol = 5e-2
-    err = max(float(np.abs(a - b).max()) for a, b in zip(outs[True], outs[False]))
+    tol = 5e-2  # relative to the per-branch batch's peak
     shapes_ok = all(a.shape == b.shape == (int(voc_cfg.waveform_lengths(len(s))),) for a, b, s in zip(outs[True], outs[False], seqs))
+    err, peak = (rel_err(np, np.concatenate(outs[True]), np.concatenate(outs[False])) if shapes_ok else (math.inf, 0.0))
     audio_s = sum(len(w) for w in outs[True]) / SAMPLE_RATE
     print(json.dumps({
-        "phase": "serving_fused", "requests": SERVE_BATCH, "max_abs_err_vs_per_branch": err, "tol": tol,
+        "phase": "serving_fused", "requests": SERVE_BATCH, "max_rel_err_vs_per_branch": err, "ref_peak": peak, "tol": tol,
         "audio_seconds": audio_s, "wall_seconds_fused": walls[True], "wall_seconds_per_branch": walls[False],
         "realtime_factor_fused": audio_s / walls[True], "realtime_factor_per_branch": audio_s / walls[False],
     }))
     if not shapes_ok or err > tol or not all(np.isfinite(w).all() for w in outs[True]):
-        fail(f"fused serving differs from the per-branch route: max abs err {err} (tol {tol}), shapes ok {shapes_ok}")
+        fail(f"fused serving differs from the per-branch route: max rel err {err} (tol {tol}), shapes ok {shapes_ok}")
     with M.mrf_stage_fusion(True):
         server = SynthesisServer(decoder, batch_size=SERVE_BATCH, dt=0.0625, truncation_value=1.0, pcm16=True)
         profile_phase(torch, "serving_fused", lambda: server.synthesize_many(seqs + seqs), 2)
@@ -1099,10 +1249,11 @@ def streaming_phase(torch, np, M) -> dict:
 
     voc_cfg = HifiGanConfig()
     gens = {}
-    for name, policy in (("bfloat16", BF16_INFERENCE), ("float32", FLOAT32)):
+    for name, policy in (("bfloat16", BF16_INFERENCE), ("float32", FLOAT32), ("float32_wire", FLOAT32)):
         gen = HifiGanGenerator(voc_cfg, policy)
         init_random_weights(gen, torch.Generator().manual_seed(0))
         gens[name] = gen.to("cuda").eval()
+    wire_ready(torch, gens["float32_wire"])  # the PCM16 stream's codes reach their range
     mel = (np.random.default_rng(12).standard_normal((STREAM_FRAMES, voc_cfg.model_in_dim)) - 4.0).astype(np.float32)
     sizes = [7, 23, 1, 40, 13, 60, 3, 31, 50, 17, 90, 2, 65]  # irregular arrivals, 402 frames; then 98 more
     pushes, i = [], 0
@@ -1142,10 +1293,11 @@ def streaming_phase(torch, np, M) -> dict:
         launches = {"mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
         return np.concatenate(parts), sv, windows, launches, {"ttfa_ms": (t_first - t_complete) * 1e3, "wall_s": wall}
 
-    # tolerances against the batch run: f32 (TF32 off) differs in summation
-    # order only; bf16 may flip a rounding of the O(1) activations wherever the
-    # window-shaped and whole-utterance convs sum in another order, a few bf16
-    # ulps at the output (5e-2, as for fused serving); PCM16 within 1 LSB
+    # tolerances against the batch run, relative to its peak: f32 (TF32 off)
+    # differs in summation order only; bf16 may flip a rounding of the
+    # activations wherever the window-shaped and whole-utterance convs sum in
+    # another order, a few bf16 ulps at the output (5e-2, as for fused
+    # serving); PCM16 (the WIRE_GAIN generator) within 1 code
     results = {}
     for name, fused, wire, tol in (
         ("bfloat16", False, "f32", 5e-2),  # warm-up of both routes, then the timed streams
@@ -1154,11 +1306,19 @@ def streaming_phase(torch, np, M) -> dict:
         ("bfloat16", True, "f32", 5e-2),
         ("float32", True, "f32", 1e-4),
         ("float32", False, "f32", 1e-4),
-        ("float32", True, "pcm16", 1),
+        ("float32_wire", True, "pcm16", 1),
     ):
         got, sv, windows, launches, times = stream(name, fused, wire)
         want = batch(name, fused, wire)
-        err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+        if got.shape != want.shape:
+            fail(f"stream {name} fused={fused} wire={wire}: {got.shape} samples, the batch run {want.shape}")
+        if wire == "pcm16":
+            err, peak = float(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()), int(np.abs(want.astype(np.int32)).max())
+            extra = {"max_abs_code_err_vs_batch": err, "ref_peak_code": peak, "wire_gain": WIRE_GAIN,
+                     "nonzero_code_share": wire_share(np, f"stream {name} PCM16", got)}
+        else:
+            err, peak = rel_err(np, got, want)
+            extra = {"max_rel_err_vs_batch": err, "ref_peak": peak}
         # the window schedule at chunk 50: one first window, interior windows
         # while a whole one fits, then the flush window
         emitted, expected_calls = STREAM_CHUNK, 1
@@ -1170,15 +1330,15 @@ def streaming_phase(torch, np, M) -> dict:
         expected = {k: v * sv.device_calls for k, v in per_call.items()}
         audio_s = got.size / SAMPLE_RATE
         record = {
-            "phase": "streaming", "dtype": name, "stage_fusion": fused, "wire": wire, "frames": STREAM_FRAMES,
+            "phase": "streaming", "dtype": name.split("_")[0], "stage_fusion": fused, "wire": wire, "frames": STREAM_FRAMES,
             "chunk": STREAM_CHUNK, "ctx": sv.ctx, "device_calls": sv.device_calls, "expected_calls": expected_calls,
             "window_frames": sorted(set(windows)), "launches": launches, "expected_launches": expected,
-            "max_abs_err_vs_batch": err, "tol": tol, "ttfa_ms": times["ttfa_ms"],
+            **extra, "tol": tol, "ttfa_ms": times["ttfa_ms"],
             "ms_per_window": times["wall_s"] * 1e3 / sv.device_calls, "audio_seconds": audio_s,
             "realtime_factor": audio_s / times["wall_s"],
         }
         print(json.dumps(record))
-        if got.shape != want.shape or err > tol or sv.device_calls != expected_calls or launches != expected:
+        if err > tol or sv.device_calls != expected_calls or launches != expected:
             fail(f"stream {name} fused={fused} wire={wire}: {record}")
         if name == "bfloat16":
             results[fused] = {"launches": launches, "windows": windows}
@@ -1315,6 +1475,8 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
     decoder = ConditionalFlowMatchingWithHifiGan.from_config(
         cfm_cfg, voc_cfg, BF16_INFERENCE, generator=torch.Generator().manual_seed(1), device="cpu"
     )
+    wire_ready(torch, decoder.vocoder)  # the continuations' PCM16 codes reach their range
+    durations_ready(torch, decoder.model)
     sd = {**{f"model.{k}": v for k, v in decoder.model.state_dict().items()},
           **{f"vocoder.{k}": v for k, v in decoder.vocoder.state_dict().items()}}
     write_hf_dir(torch, tmp / "decoder", sd, {"model_config": dataclasses.asdict(cfm_cfg), "vocoder_config": dataclasses.asdict(voc_cfg)})
@@ -1361,11 +1523,12 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
                 "frames": frames, "decoder_bound": bound, "samples": n_samples, "launches": launches,
                 "expected": expected, "wall_seconds": wall, "audio_seconds": n_samples / SAMPLE_RATE,
             }
+            if not out_wav.is_file() or audio_io.info(out_wav) != (SAMPLE_RATE, 1, n_samples) or result["waveform"].size != n_samples:
+                fail(f"continuation {label}: {out_wav.name} missing or not {n_samples} samples at 16 kHz")
+            record.update(wire_gain=WIRE_GAIN, nonzero_code_share=wire_share(np, f"continuation {label}", audio_io.read(out_wav)[0]))
             print(json.dumps(record))
             if launches != expected:
                 fail(f"continuation {label}: launches {launches} != expected {expected}")
-            if not out_wav.is_file() or audio_io.info(out_wav) != (SAMPLE_RATE, 1, n_samples) or result["waveform"].size != n_samples:
-                fail(f"continuation {label}: {out_wav.name} missing or not {n_samples} samples at 16 kHz")
             if len(units) == 0 or int(units.min()) < 0 or int(units.max()) >= n_units:
                 fail(f"continuation {label}: units outside [0, {n_units})")
             results[label] = {"launches": launches, "frames": frames, "bound": bound, "prompt_frames": ENC_FRAMES, "units": units}
@@ -1613,10 +1776,12 @@ def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
             bound = dec._duration_bound(ids)
             n_samples = int(voc_cfg.waveform_lengths(frames))
             expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3}
+            codes = np.round(np.clip(result["waveform"], -1.0, 1.0) * 32767.0)  # as the port's pcm16_encode
             print(json.dumps({
                 "phase": f"continuation_speculative_{label}", "prompt_units": len(prompt_units),
                 "generated_units": len(result["generated_units"]), "frames": frames, "decoder_bound": bound,
                 "samples": n_samples, "launches": launches, "expected": expected, "wall_seconds": wall,
+                "wire_gain": WIRE_GAIN, "nonzero_code_share": wire_share(np, f"speculative continuation {label}", codes),
             }))
             if launches != expected:
                 fail(f"speculative continuation {label}: launches {launches} != expected {expected}")
@@ -2390,7 +2555,8 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
     export_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
                        "mrf_stage": M.mrf_stage_kernel.launches}
     want = decoder.vocoder.config.waveform_lengths((ids != 0).sum(dim=1))
-    record["export"] = {"batch": [EXPORT_BATCH, EXPORT_UNITS], "lengths": lengths.tolist(), "launches": export_launches}
+    record["export"] = {"batch": [EXPORT_BATCH, EXPORT_UNITS], "lengths": lengths.tolist(), "launches": export_launches,
+                        "peak": float(wave.float().abs().max())}
     if not torch.equal(lengths, want) or not torch.isfinite(wave).all():
         fail(f"the exported pair did not synthesize: {record['export']}")
     print(json.dumps(record))
@@ -2775,24 +2941,12 @@ WORDS = ("the", "cat", "sat", "on", "a", "mat", "in", "nineteen", "eighty", "fou
 
 
 def init_on_card(torch, module, seed: int) -> None:
-    """Seeded random weights drawn on the card by the rules of
-    ``models.composite.init_random_weights`` (zero biases, unit norm
-    weights, N(0, 1/fan_in) weights), Whisper's encoder positions its
-    sinusoid table: large-v3's 1.5 B parameters in seconds."""
-    from speech_resynth_torch.models.whisper import sinusoids
+    """Seeded random weights drawn on the card (a CUDA generator) by the
+    module's own rules (``models.composite.init_random_weights``): Whisper
+    large-v3's 1.5 B parameters in seconds."""
+    from speech_resynth_torch.models.composite import init_random_weights
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif name.endswith("norm.weight"):
-                p.fill_(1.0)
-            elif name == "model.encoder.embed_positions.weight":
-                p.copy_(sinusoids(*p.shape))
-            else:
-                fan_in = p[0].numel() if p.ndim > 1 else 1
-                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") / math.sqrt(fan_in))
+    init_random_weights(module, torch.Generator(device="cuda").manual_seed(seed))
 
 
 def write_whisper_dir(torch, path: Path) -> dict:
@@ -3215,10 +3369,14 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
     file at the length its units give; and the launches: 11 K1 + 1 K4 per
     tokenize batch, 4 K1 per CFM step, 64 K1 + 9 K2 per decoder batch (the
     CFM save's dev sweep, ``evaluate``, ``synthesize``), 11 K1 + 1 K4 per
-    ``synthesize`` encoder batch."""
+    ``synthesize`` encoder batch. Between the two calls the exported
+    generator's conv_post weight is scaled by WIRE_GAIN, so the files
+    ``synthesize`` writes hold nonzero PCM16 codes (two GAN steps leave the
+    generator near its initial scale)."""
     import yaml
 
     from speech_resynth_torch.cli import resynth as cli
+    from speech_resynth_torch.core.safetensors import load_file, save_file
     from speech_resynth_torch.dsp import audio_io
     from speech_resynth_torch.models.hifigan import HifiGanConfig
     from speech_resynth_torch.models.hubert import HubertConfig
@@ -3242,6 +3400,10 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
     cli.main(["all", "--config", str(path)])
     torch.cuda.synchronize()
     record["all_seconds"] = time.perf_counter() - t1
+    exported = root / "hifigan" / "model.safetensors"
+    weights = load_file(str(exported))
+    weights["conv_post.weight"] = weights["conv_post.weight"] * WIRE_GAIN
+    save_file(weights, str(exported))
     t1 = time.perf_counter()
     cli.main(["synthesize", "--config", str(path)])
     torch.cuda.synchronize()
@@ -3260,20 +3422,23 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
     dev_frames = [b["input_ids"].shape[1] for b in UnitDataset(str(root / "units/dev.json")).batches(8, shuffle=False, drop_last=False)]
     test_frames = [b["input_ids"].shape[1] for b in UnitDataset(str(root / "units/test.json")).batches(EVAL_UTTS, shuffle=False, drop_last=False)]
     hubert, voc = HubertConfig(), HifiGanConfig()
-    outs = {}
+    outs, written = {}, []
     for wav in wavs:
         if "test-clean" in str(wav):
             name = wav.relative_to(root / "16k")
             out = root / "resynth" / name
             want = int(voc.waveform_lengths(hubert.num_frames(audio_io.info(wav)[2])))
             outs[str(name)] = {"info": list(audio_io.info(out)) if out.is_file() else None, "want": [SAMPLE_RATE, 1, want]}
+            if out.is_file():
+                written.append(audio_io.read(out)[0])
     want = {
         "flash_attention": 11 * len(tokenize_batches) + 2 * 4 + 64 * (len(dev_frames) + len(test_frames)) + 11 + 64,
         "codebook_assign": len(tokenize_batches) + 1, "mrf_branch": 9 * (len(dev_frames) + len(test_frames) + 1), "mrf_stage": 0,
     }
     record.update(launches=launches, expected=want, tokenize_batches=tokenize_batches,
                   dev_frames=dev_frames, test_frames=test_frames, wavs=len(wavs), units={k: len(v) for k, v in units.items()},
-                  mels=len(mels), csv_lines=len(csv), resynthesized=outs, seconds=time.perf_counter() - t0)
+                  mels=len(mels), csv_lines=len(csv), resynthesized=outs, seconds=time.perf_counter() - t0,
+                  wire_gain=WIRE_GAIN, nonzero_code_share=wire_share(np, "cli.resynth synthesize files", written))
     print(json.dumps(record))
     if (len(wavs) != CLI_FILES or {k: len(v) for k, v in units.items()} != splits or len(mels) != CLI_FILES
             or not all((e / "model.safetensors").is_file() and (e / "config.json").is_file() for e in exports)
@@ -3305,7 +3470,8 @@ def entry_phase(torch, A, M) -> dict:
                 "mrf_stage": M.mrf_stage_kernel.launches}
     want = graft_entry.VOCODER_CONFIG.waveform_lengths(torch.full((ids.shape[0],), ids.shape[1], device="cuda"))
     record = {"phase": "entry", "ids": list(ids.shape), "ms": ms, "launches": launches, "lengths": lengths.tolist(),
-              "wave": list(wave.shape), "audio_seconds_per_s": float(lengths.sum()) / SAMPLE_RATE / (ms / 1e3)}
+              "wave": list(wave.shape), "audio_seconds_per_s": float(lengths.sum()) / SAMPLE_RATE / (ms / 1e3),
+              "peak": float(wave.float().abs().max())}
     print(json.dumps(record))
     if (launches != {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0} or not torch.equal(lengths, want)
             or wave.device.type != "cuda" or not torch.isfinite(wave.float()).all()):
@@ -3333,6 +3499,17 @@ def e2e_branch_shapes(e2e, scale: str):
     return voc, shapes
 
 
+# The guards of the quality run's GAN beside its gate. A generator drawn by the
+# JAX package's initializers starts near silent (peak ~7e-9), where its
+# gradients lie far below Adam's eps, so its first steps move the weights
+# little (a relative change of 4e-4 after 2 steps and 1.4e-3 after the 16 of
+# scale "ci" on the CPU, 1.0e-2 after those 16 on an H100) but its output a
+# lot (peak 1.5e-4 to 4e-4). A trainer that never stepped the generator
+# leaves a change of 0 and a ratio of peaks of 1.
+GAN_MOVED_MIN = 1e-5  # the least relative change of the weights
+GAN_LOUDER_MIN = 10.0  # the least ratio of the trained generator's peak to its draw's
+
+
 def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) -> dict:
     """``run_e2e_quality(root, scale)`` on the card: the three loops on the
     synthetic corpora, then the held-out measures, with the JAX test's gates
@@ -3344,7 +3521,12 @@ def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) ->
     takes (64 at scale "chip", 32 at "ci": the plain version); none in
     training (the CFM's head dim 32 and the LM's "xla" take the plain
     version; the generator records a gradient). Printed beside the JAX
-    package's numbers of E2E_QUALITY.md."""
+    package's numbers of E2E_QUALITY.md. Beside the gates, two guards that
+    are no quality gates: the trained generator's weights moved off their
+    draw by more than GAN_MOVED_MIN of its norm, and its output's peak is at
+    least GAN_LOUDER_MIN times its draw's (at scale "ci" both generators stay
+    at the mel-L1 of silence, and the GAN gate there would hold a trainer
+    that never stepped as well as one that did)."""
     from speech_resynth_torch.pipeline import e2e_quality as E
     from speech_resynth_torch.pipeline.data import load_named_units_from_json
 
@@ -3368,10 +3550,14 @@ def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) ->
         "resynth": bool(np.isfinite(r["resynth_mel_l1"]) and r["resynth_mel_l1"] < 1.5 * r["gan_mel_l1_untrained"]),
         "lm": bool(r["lm_pair_accuracy"] > 0.9),
     }
+    guards = {"gan_moved": bool(r["gan_weight_change"] > GAN_MOVED_MIN),
+              "gan_louder": bool(r["gan_peak_trained"] >= GAN_LOUDER_MIN * r["gan_peak_untrained"])}
     record = {"phase": "e2e_quality", "scale": scale, "wall_seconds": wall, "results": results, "gates": gates,
-              "jax_package_chip_scale": JAX_E2E_QUALITY, "launches": launches, "expected": want}
+              "guards": guards, "guard_limits": {"gan_moved": GAN_MOVED_MIN, "gan_louder": GAN_LOUDER_MIN},
+              "jax_package_chip_scale": JAX_E2E_QUALITY,
+              "launches": launches, "expected": want}
     print(json.dumps(record))
-    if not all(gates.values()) or launches != want:
+    if not all(gates.values()) or not all(guards.values()) or launches != want:
         fail(f"e2e quality: {record}")
     return {"launches": launches, "branches": branches, "scoring_shapes": scoring if k1_per_forward else [], "vocoder": voc,
             "n_eval": p["n_eval"], "k1_per_forward": k1_per_forward, "head_dim": p["lm_hidden"] // 2, "results": results,
@@ -3717,6 +3903,8 @@ def main() -> int:
     k4 = codebook_phase(torch, C)
     lap("codebook_phase")
     print(json.dumps({"phase": "kernels_checked", "kernels": ["flash_attention", "mrf_branch", "mrf_stage", "codebook_assign"]}))
+    init_phase(torch, np)
+    lap("init_phase")
     serving = slice_phase(torch, np, A, M)
     lap("slice_phase")
     serving_fused = serving_fused_phase(torch, np, A, M, voc_cfg)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from ..dsp.mel import MEL_PAD_VALUE
 from ..ops.length_regulator import regulate_length
@@ -97,6 +98,22 @@ def ode_num_steps(dt: float) -> int:
     return num_steps
 
 
+_CFM_DENSE = r"(to_embed|to_pred|time_cond_mlp\.1|transformer\.layers\.\d+\.(0|2\.to_qkv|2\.to_out))"
+_CFM_CONVS = r"(conv_embed\.dw_conv1d\.0|transformer\.layers\.\d+\.4\.conv[12]|duration_predictor\.conv)"
+# the JAX model's initializers: nn.Embed's default for the unit table; lecun_normal
+# for every dense and conv kernel (the positional conv grouped, the conv
+# feed-forward, the duration predictor); the adaptive norms' projections 0, the
+# final norm's gain 1, the Fourier frequencies N(0, 1), biases 0
+CFM_INIT_RULES = (
+    (r"to_cond_emb\.weight", I.embed_normal()),
+    (r"time_cond_mlp\.0\.weights", I.normal(1.0)),
+    (r"transformer\.layers\.\d+\.[13]\.to_weight\.weight", I.zeros),
+    (r"transformer\.final_norm\.weight", I.ones),
+    (rf"({_CFM_DENSE}|{_CFM_CONVS})\.weight", I.lecun_normal()),
+    (rf"({_CFM_DENSE}|{_CFM_CONVS})\.bias", I.zeros),
+)
+
+
 class ConditionalFlowMatchingModel(nn.Module):
     def __init__(self, config: CFMConfig, policy: Policy = DEFAULT, attn_implementation: str = "auto"):
         super().__init__()
@@ -114,6 +131,9 @@ class ConditionalFlowMatchingModel(nn.Module):
         self.to_pred = nn.Linear(cfg.hidden_size, cfg.dim_in, bias=False, dtype=pd)
         if cfg.predict_duration:
             self.duration_predictor = DurationPredictor(cfg.dim_cond_emb, policy)
+
+    def init_rules(self) -> I.Rules:
+        return CFM_INIT_RULES
 
     def _embed_units(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Unit embedding with padding_idx=0 semantics (the pad row reads as zero)."""

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 from pathlib import Path
 from typing import List, Optional, Tuple, Union
 
@@ -23,6 +22,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.initializers import init_by_rules
 from ..core.precision import BF16_INFERENCE, Policy
 from ..dsp.mulaw import mulaw_encode
 from .cfm import CFMConfig, ConditionalFlowMatchingModel
@@ -31,20 +31,16 @@ from .hifigan import HifiGanConfig, HifiGanGenerator
 from .hub import resolve_pretrained_dir
 
 
-@torch.no_grad()
 def init_random_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights (CPU generator): zero biases and adaptive-norm
-    gains, unit norm weights, N(0, 1) embeddings and Fourier frequencies, and
-    N(0, 1/fan_in) for every other weight, so activations stay O(1)."""
-    for name, p in list(module.named_parameters()) + list(module.named_buffers()):
-        if name.endswith("bias") or name.endswith("to_weight.weight") or name == "mean":
-            p.zero_()
-        elif name.endswith("norm.weight") or name == "scale":
-            p.fill_(1.0)
-        else:
-            fan_in = p[0].numel() if p.ndim > 1 else 1
-            std = 1.0 if p.ndim == 1 or name == "to_cond_emb.weight" else 1.0 / math.sqrt(fan_in)
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
+    """Seeded random weights from ``generator`` (a CPU one, or a CUDA one to
+    draw on the card), each parameter and buffer by the initializer the
+    module's model declares (``module.init_rules()``: the JAX package's, see
+    ``core.initializers``). A module without rules, or a tensor its rules do
+    not name, raises."""
+    rules = getattr(module, "init_rules", None)
+    if rules is None:
+        raise TypeError(f"{type(module).__name__} declares no init_rules")
+    init_by_rules(module, rules(), generator)
 
 
 def pcm16_encode(waveform: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from ..ops import fused_mrf
 from ..ops.fused_mrf import LRELU_SLOPE, mrf_branch, mrf_branch_fits, mrf_stage, mrf_stage_fits
@@ -50,10 +51,12 @@ class HifiGanConfig:
     resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
     leaky_relu_slope: float = LRELU_SLOPE
     normalize_before: bool = False
+    initializer_range: float = 0.01  # std of the random conv weights (``HifiGanGenerator.init_rules``)
 
     @classmethod
     def from_dict(cls, v: dict) -> "HifiGanConfig":
-        """Parse an HF-format vocoder config dict (missing keys take defaults)."""
+        """Parse an HF-format vocoder config dict (missing keys take defaults;
+        ``initializer_range`` is not read, as the JAX package does not)."""
         d = cls()
         return cls(
             model_in_dim=v.get("model_in_dim", d.model_in_dim),
@@ -185,6 +188,18 @@ class HifiGanGenerator(nn.Module):
         self.conv_post = nn.Conv1d(c_out, 1, 7, padding=3, dtype=pd)
         self.register_buffer("mean", torch.zeros(cfg.model_in_dim, dtype=torch.float32))
         self.register_buffer("scale", torch.ones(cfg.model_in_dim, dtype=torch.float32))
+
+    def init_rules(self) -> I.Rules:
+        """The JAX generator's initializers: every conv and transposed conv
+        weight N(0, ``initializer_range``), every bias 0, the input statistics
+        the identity (mean 0, scale 1)."""
+        convs = r"(conv_pre|conv_post|upsampler\.\d+|resblocks\.\d+\.convs[12]\.\d+)"
+        return (
+            (convs + r"\.weight", I.normal(self.config.initializer_range)),
+            (convs + r"\.bias", I.zeros),
+            ("mean", I.zeros),
+            ("scale", I.ones),
+        )
 
     def _stage_operands(self, stage: int, blocks) -> fused_mrf.StageOperands:
         """The stage's branches laid out for K3, kept until one of its
@@ -333,10 +348,24 @@ class DiscriminatorP(nn.Module):
         return h.reshape(b, -1), fmap
 
 
+# the JAX discriminators' initializers: weight-norm directions and
+# spectral-normed kernels he_normal, gains 1, biases 0, the power iteration's u N(0, 1)
+_DISCRIMINATOR_CONVS = r"discriminators\.\d+\.(convs\.\d+|conv_post)"
+DISCRIMINATOR_INIT_RULES = (
+    (_DISCRIMINATOR_CONVS + r"\.(v|weight)", I.he_normal()),
+    (_DISCRIMINATOR_CONVS + r"\.g", I.ones),
+    (_DISCRIMINATOR_CONVS + r"\.bias", I.zeros),
+    (_DISCRIMINATOR_CONVS + r"\.u", I.normal(1.0)),
+)
+
+
 class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, periods=(2, 3, 5, 7, 11), policy: Policy = DEFAULT):
         super().__init__()
         self.discriminators = nn.ModuleList(DiscriminatorP(p, policy=policy) for p in periods)
+
+    def init_rules(self) -> I.Rules:
+        return DISCRIMINATOR_INIT_RULES
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         """(outs_r, outs_g, fmaps_r, fmaps_g), one entry per period."""
@@ -393,6 +422,9 @@ class MultiScaleDiscriminator(nn.Module):
     def __init__(self, policy: Policy = DEFAULT):
         super().__init__()
         self.discriminators = nn.ModuleList(DiscriminatorS(spectral=(i == 0), policy=policy) for i in range(3))
+
+    def init_rules(self) -> I.Rules:
+        return DISCRIMINATOR_INIT_RULES
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor, update_stats: bool = False):
         """(outs_r, outs_g, fmaps_r, fmaps_g); with ``update_stats`` the first

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from ..ops.attention import dot_product_attention
 from .transformer import _linear
@@ -228,6 +229,20 @@ class TransformerEncoder(nn.Module):
         )
 
 
+_HUBERT_DENSE = (r"(feature_projection\.projection|encoder\.layers\.\d+\.(attention\.(q|k|v|out)_proj"
+                 r"|feed_forward\.(intermediate|output)_dense))")
+_HUBERT_NORMS = r"(feature_extractor\.conv_layers\.\d+\.|feature_projection\.|encoder\.|encoder\.layers\.\d+\.(final_)?)layer_norm"
+# the JAX encoder's initializers: he_normal for every conv (the feature
+# extractor's and the positional one), lecun_normal for the dense kernels,
+# LayerNorm and GroupNorm scales 1, every bias 0
+HUBERT_INIT_RULES = (
+    (r"(feature_extractor\.conv_layers\.\d+\.conv|encoder\.pos_conv_embed\.conv)\.weight", I.he_normal()),
+    (_HUBERT_DENSE + r"\.weight", I.lecun_normal()),
+    (_HUBERT_NORMS + r"\.weight", I.ones),
+    (rf"({_HUBERT_DENSE}|{_HUBERT_NORMS}|encoder\.pos_conv_embed\.conv)\.bias", I.zeros),
+)
+
+
 class HubertEncoder(nn.Module):
     """``attn_implementation`` routes every layer's attention
     (``ops.attention.dot_product_attention``: "auto", "pallas" or "xla")."""
@@ -239,6 +254,9 @@ class HubertEncoder(nn.Module):
         self.feature_extractor = ConvFeatureExtractor(config, policy)
         self.feature_projection = FeatureProjection(config, policy)
         self.encoder = TransformerEncoder(config, policy, attn_implementation)
+
+    def init_rules(self) -> I.Rules:
+        return HUBERT_INIT_RULES
 
     def forward(
         self,

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from ..ops.attention import dot_product_attention
 from .transformer import apply_rotary
@@ -198,6 +199,15 @@ class LlamaBackbone(nn.Module):
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps, policy)
 
 
+# the JAX LM's initializers: nn.Embed's default for the token table,
+# lecun_normal for every dense kernel (no biases), the RMSNorm gains 1
+LLAMA_INIT_RULES = (
+    (r"model\.embed_tokens\.weight", I.embed_normal()),
+    (r"(model\.layers\.\d+\.(self_attn\.(q|k|v|o)_proj|mlp\.(gate|up|down)_proj)|lm_head)\.weight", I.lecun_normal()),
+    (r"model\.(layers\.\d+\.(input_layernorm|post_attention_layernorm)|norm)\.weight", I.ones),
+)
+
+
 class LlamaLM(nn.Module):
     """(B, L) token ids -> (f32 logits (B, L, vocab), cache or None).
     ``attn_implementation`` routes the full forward's attention (see the
@@ -213,6 +223,8 @@ class LlamaLM(nn.Module):
         self.model = LlamaBackbone(config, policy, attn_implementation)
         self.lm_head = Projection(config.hidden_size, config.vocab_size, policy.param_dtype, torch.float32)
 
+    def init_rules(self) -> I.Rules:
+        return LLAMA_INIT_RULES
 
     @property
     def device(self) -> torch.device:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from .hubert import HubertConfig, HubertEncoder
 
@@ -62,6 +63,9 @@ class UTMOSPredictor(nn.Module):
         )
         self.proj_in = nn.Linear(2 * cfg.lstm_hidden, cfg.projection_hidden)
         self.proj_out = nn.Linear(cfg.projection_hidden, 1)
+
+    def init_rules(self) -> I.Rules:
+        return I.FAN_IN_RULES
 
     def forward(
         self,

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from ..ops.attention import dot_product_attention
 from .transformer import _linear
@@ -249,6 +250,12 @@ class WhisperForASR(nn.Module):
         self.config, self.policy = config, policy
         self.model = WhisperModel(config, policy, attn_implementation)
         self.proj_out = nn.Linear(config.d_model, config.vocab_size, bias=False, dtype=policy.param_dtype)
+
+    def init_rules(self) -> I.Rules:
+        """The encoder's positions the sinusoid table (the JAX model's
+        declaration); every other tensor the port's own seeded draw."""
+        return (("model.encoder.embed_positions.weight", lambda shape, gen: sinusoids(*shape).to(gen.device)),
+                *I.FAN_IN_RULES)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.policy.compute_dtype).float(), self.proj_out.weight.float())

@@ -10,10 +10,15 @@ loaders (``models.composite.load_vocoder``,
 and measures:
 
 * HiFi-GAN: mel-L1 of re-vocoded audio on held-out utterances, against the
-  generator the trainer started from;
+  generator the trainer started from, with both generators' output peaks and
+  how far training moved the weights (``gan_weight_change``: a generator
+  drawn by the JAX package's initializers is near silent, and at a small
+  scale the trained one can stay so, where the mel-L1 gate cannot tell a
+  trainer that moved nothing);
 * CFM: mel-L1 of ODE-sampled mels against ground truth for held-out unit
-  sequences, against the model the trainer started from (its frozen unit
-  table is the trained model's), with Euler and midpoint integration;
+  sequences, against a fresh draw of the whole model, unit table included,
+  as the JAX run draws its untrained model, with Euler and midpoint
+  integration;
 * full resynthesis (units → CFM → vocoder → wav): log-mel distance of the
   resynthesized audio from the source audio;
 * speech LM: minimal-pair accuracy (an sWUGGY analog) of the restored
@@ -29,6 +34,7 @@ pair is evaluated in f32. ``scale="ci"`` is the small configuration,
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 from typing import Dict
 
@@ -175,17 +181,26 @@ def _log_mel(wav: torch.Tensor) -> np.ndarray:
 
 
 @torch.inference_mode()
-def _eval_vocoder(gen, eval_names, spec_dir, device: torch.device) -> float:
-    """mel-L1 between mel(G(mel)) and mel over held-out utterances, each
-    padded to EVAL_PAD_FRAMES with the log-mel floor."""
-    errs = []
+def _eval_vocoder(gen, eval_names, spec_dir, device: torch.device) -> tuple:
+    """(mel-L1 between mel(G(mel)) and mel, max |G(mel)|) over held-out
+    utterances, each padded to EVAL_PAD_FRAMES with the log-mel floor."""
+    errs, peak = [], 0.0
     for name in eval_names:
         mel = np.load(spec_dir / (name + ".npy")).astype(np.float32)
         T = mel.shape[0]
         padded = np.pad(mel, ((0, EVAL_PAD_FRAMES - T), (0, 0)), constant_values=np.log(1e-5))
         wav = gen(torch.from_numpy(padded[None]).to(device))
         errs.append(_mel_l1(_log_mel(wav)[:T], mel))
-    return float(np.mean(errs))
+        peak = max(peak, float(wav.abs().max()))
+    return float(np.mean(errs)), peak
+
+
+def _weight_change(start: torch.nn.Module, end: torch.nn.Module) -> float:
+    """||end - start|| / ||start|| over the tensors of two models of one
+    architecture: 0 when ``end`` holds the draw ``start`` holds."""
+    a, b = start.state_dict(), end.state_dict()
+    diff = sum(float((b[k].double().cpu() - v.double().cpu()).pow(2).sum()) for k, v in a.items())
+    return math.sqrt(diff / sum(float(v.double().pow(2).sum()) for v in a.values()))
 
 
 def _padded_ids(units, device: torch.device) -> torch.Tensor:
@@ -194,11 +209,20 @@ def _padded_ids(units, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.pad(ids, (0, EVAL_PAD_FRAMES - len(ids)))[None]).to(device)
 
 
+def _untrained_cfm(config, seed: int, device: DeviceLike = None):
+    """The CFM the trained one is held against: a fresh draw of the whole
+    model (f32, frozen), unit table included, as the JAX run draws its
+    untrained model; not the trained model's table."""
+    from ..core.precision import FLOAT32
+    from ..train.cfm import build_model
+
+    return build_model(config, None, FLOAT32, seed, device).eval().requires_grad_(False)
+
+
 def run_e2e_quality(workdir: str | Path, scale: str = "ci", device: DeviceLike = None) -> Dict:
     from ..core.precision import FLOAT32
     from ..models.composite import ConditionalFlowMatchingWithHifiGan, init_random_weights, load_vocoder
     from ..models.hifigan import HifiGanGenerator
-    from ..train.cfm import build_model
     from .speechlm import write_scores
     from .train_loops import _hifigan_config, _restore_lm, train_flow_matching, train_hifigan, train_speechlm
 
@@ -220,13 +244,14 @@ def run_e2e_quality(workdir: str | Path, scale: str = "ci", device: DeviceLike =
     untrained_gen = HifiGanGenerator(voc_config, FLOAT32)
     init_random_weights(untrained_gen, torch.Generator().manual_seed(gan_cfg.hifigan.seed))
     untrained_gen = untrained_gen.to(device).eval().requires_grad_(False)
-    results["gan_mel_l1_untrained"] = _eval_vocoder(untrained_gen, eval_names, spec_dir, device)
+    results["gan_mel_l1_untrained"], results["gan_peak_untrained"] = _eval_vocoder(untrained_gen, eval_names, spec_dir, device)
 
     train_hifigan(gan_cfg, device)
 
     voc_dir = Path(gan_cfg.hifigan.path)
     trained_gen = load_vocoder(voc_dir, FLOAT32).to(device).eval().requires_grad_(False)
-    results["gan_mel_l1_trained"] = _eval_vocoder(trained_gen, eval_names, spec_dir, device)
+    results["gan_mel_l1_trained"], results["gan_peak_trained"] = _eval_vocoder(trained_gen, eval_names, spec_dir, device)
+    results["gan_weight_change"] = _weight_change(untrained_gen, trained_gen)
 
     # ---- CFM: the trained pair through load_pretrained; the start of training beside it
     _register_tiny_encoder()
@@ -237,9 +262,7 @@ def run_e2e_quality(workdir: str | Path, scale: str = "ci", device: DeviceLike =
         Path(cfm_cfg.flow_matching.path) / "hf", voc_dir, policy=FLOAT32, device=device
     )
     trained = pair.model
-    # the unit table is frozen in training: the trained model's is the one the trainer started with
-    untrained = build_model(trained.config, trained.to_cond_emb.weight.cpu().numpy(), FLOAT32,
-                            int(cfm_cfg.common.seed), device).eval().requires_grad_(False)
+    untrained = _untrained_cfm(trained.config, int(cfm_cfg.common.seed), device)
 
     def sample(model, name, dt: float, seed: int, ode_method: str = "euler") -> torch.Tensor:
         generator = torch.Generator(device=device).manual_seed(seed)

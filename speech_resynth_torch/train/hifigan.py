@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 
 import torch
 from torch import nn
@@ -66,32 +65,15 @@ class HifiGanTrainerConfig:
     mel_loss_weight: float = 45.0
 
 
-@torch.no_grad()
-def init_discriminator_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded weights as the JAX discriminators initialize them: weight-norm
-    directions and spectral-normed kernels N(0, 2 / fan_in), gains 1, biases
-    0, the power iteration's ``u`` N(0, 1)."""
-    for name, t in list(module.named_parameters()) + list(module.named_buffers()):
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("v", "weight"):
-            fan_in = t[0].numel()
-            t.copy_(torch.randn(t.shape, generator=generator) * math.sqrt(2.0 / fan_in))
-        elif leaf == "u":
-            t.copy_(torch.randn(t.shape, generator=generator))
-        elif leaf == "g":
-            t.fill_(1.0)
-        else:
-            t.zero_()
-
-
 def build_models(config: HifiGanConfig, policy: Policy = DEFAULT, seed: int = 0, device: DeviceLike = None):
-    """(generator, MPD, MSD) with seeded random weights, on ``device``."""
+    """(generator, MPD, MSD) with seeded random weights, each by its model's
+    rules (the JAX package's initializers), on ``device``."""
     device = resolve_device(device)
     gen = HifiGanGenerator(config, policy)
     init_random_weights(gen, torch.Generator().manual_seed(seed))
     mpd, msd = MultiPeriodDiscriminator(policy=policy), MultiScaleDiscriminator(policy=policy)
-    init_discriminator_weights(mpd, torch.Generator().manual_seed(seed + 1))
-    init_discriminator_weights(msd, torch.Generator().manual_seed(seed + 2))
+    init_random_weights(mpd, torch.Generator().manual_seed(seed + 1))
+    init_random_weights(msd, torch.Generator().manual_seed(seed + 2))
     return gen.to(device), mpd.to(device), msd.to(device)
 
 

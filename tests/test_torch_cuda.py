@@ -278,7 +278,9 @@ def test_stage_fused_generator_matches_per_branch_on_card(card, dtype):
     """The production vocoder with stage fusion on: 3 K3 launches and no K2,
     and the waveform of the per-branch route (9 K2 launches). In bf16 the
     stage rounds the branch mean once where the route rounds each branch, a
-    few bf16 ulps through the later stages (atol 2e-2 on O(1) samples)."""
+    few bf16 ulps through the later stages. The random vocoder's samples are
+    ~1e-5 (the JAX package's N(0, 0.01) conv weights), so the tolerance is
+    relative to the per-branch waveform's peak: 1e-4 (f32), 2e-2 (bf16)."""
     from speech_resynth_torch.core.precision import BF16_INFERENCE, FLOAT32
 
     gen = _vocoder(FLOAT32 if dtype == torch.float32 else BF16_INFERENCE)
@@ -291,13 +293,16 @@ def test_stage_fused_generator_matches_per_branch_on_card(card, dtype):
             on = gen(mel)
         torch.cuda.synchronize()
         assert (TM.mrf_branch_kernel.launches - k2, TM.mrf_stage_kernel.launches - k3) == (9, 3)
-    torch.testing.assert_close(on, off, rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
+    peak = float(off.abs().max())
+    assert peak > 0
+    torch.testing.assert_close(on, off, rtol=0, atol=(1e-4 if dtype == torch.float32 else 2e-2) * peak)
 
 
 @pytest.mark.cuda
 def test_short_stream_matches_batch_on_card(card):
     """The production vocoder in f32 (TF32 off), streamed in irregular pushes
-    with stage fusion on: the batch run, up to summation order."""
+    with stage fusion on: the batch run, up to summation order (1e-4 of its
+    peak)."""
     from speech_resynth_torch.core.precision import FLOAT32
     from speech_resynth_torch.pipeline.streaming import StreamingVocoder
 
@@ -313,8 +318,8 @@ def test_short_stream_matches_batch_on_card(card):
             i += step
         parts.append(sv.flush())
     got = np.concatenate(parts)
-    assert got.shape == want.shape and sv.device_calls >= 3
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert got.shape == want.shape and sv.device_calls >= 3 and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
 @pytest.mark.cuda

@@ -41,7 +41,7 @@ from speech_resynth_torch.models.composite import init_random_weights
 from speech_resynth_torch.models.hubert import HubertConfig
 from speech_resynth_torch.pipeline import e2e_quality as torch_e2e
 from speech_resynth_torch.pipeline import train_loops
-from speech_resynth_torch.train.hifigan import HifiGanTrainerConfig, init_discriminator_weights, make_gan_trainer
+from speech_resynth_torch.train.hifigan import HifiGanTrainerConfig, make_gan_trainer
 
 aten = torch.ops.aten
 STEP_RTOL = {"cfm": 0.01, "hifigan": 0.05}  # measured: CFM 0.1% and HiFi-GAN 3.1% under FlopCounterMode's count
@@ -133,8 +133,8 @@ def test_discriminator_flops_equal_flop_counter(narrow_discriminators):
     spectral norm's u^T W v, once a call whatever the batch, is not conv work)."""
     samples = int(GAN.waveform_lengths(16))
     mpd, msd = TH.MultiPeriodDiscriminator(policy=FLOAT32), TH.MultiScaleDiscriminator(policy=FLOAT32)
-    init_discriminator_weights(mpd, torch.Generator().manual_seed(1))
-    init_discriminator_weights(msd, torch.Generator().manual_seed(2))
+    init_random_weights(mpd, torch.Generator().manual_seed(1))
+    init_random_weights(msd, torch.Generator().manual_seed(2))
     y, y_hat = torch.randn(2, samples), torch.randn(2, samples)
     with torch.no_grad():
         got = _flops(lambda: (mpd(y, y_hat), msd(y, y_hat)), by_op=True)
@@ -234,7 +234,8 @@ def test_e2e_configs_equal_jax(scale, tmp_path):
         assert getattr(torch_e2e, name)(tmp_path, corpus, p).to_dict() == getattr(jax_e2e, name)(tmp_path, corpus, p).to_dict()
 
 
-RESULT_KEYS = ("gan_mel_l1_untrained", "gan_mel_l1_trained", "cfm_mel_l1_untrained", "cfm_mel_l1_trained",
+RESULT_KEYS = ("gan_mel_l1_untrained", "gan_mel_l1_trained", "gan_peak_untrained", "gan_peak_trained", "gan_weight_change",
+               "cfm_mel_l1_untrained", "cfm_mel_l1_trained",
                "cfm_mel_l1_trained_midpoint_eqnfe", "cfm_mel_l1_trained_midpoint_halfnfe", "resynth_mel_l1",
                "lm_pair_accuracy", "lm_pairs")
 
@@ -251,6 +252,8 @@ def test_e2e_quality_plumbing_at_a_small_scale(tmp_path, monkeypatch, narrow_dis
     assert results["scale"] == "small" and set(RESULT_KEYS) <= set(results)
     assert all(np.isfinite(results[k]) for k in RESULT_KEYS)
     assert results["lm_pairs"] == 200 and 0.0 <= results["lm_pair_accuracy"] <= 1.0
+    # the GAN trainer moved the generator off its draw, and its output off the draw's near silence
+    assert results["gan_weight_change"] > 1e-5 and results["gan_peak_trained"] >= 10 * results["gan_peak_untrained"]
     assert json.loads((tmp_path / "E2E_QUALITY.json").read_text()) == results
     for export in (tmp_path / "hifigan", tmp_path / "cfm" / "hf"):
         assert (export / "model.safetensors").is_file()
@@ -264,6 +267,8 @@ def test_e2e_quality_ci(tmp_path):
     assert r["cfm_mel_l1_trained"] < 0.7 * r["cfm_mel_l1_untrained"], r
     assert np.isfinite(r["resynth_mel_l1"]) and r["resynth_mel_l1"] < 1.5 * r["gan_mel_l1_untrained"], r
     assert r["lm_pair_accuracy"] > 0.9, r
+    # the generator left its draw and its near silence: at this scale the GAN gate passes at the mel-L1 of silence
+    assert r["gan_weight_change"] > 1e-5 and r["gan_peak_trained"] >= 10 * r["gan_peak_untrained"], r
 
 
 # ---------------------------------------------------------------------------

@@ -267,8 +267,8 @@ def test_sample_without_noise_source_raises(cfm_pair):
         cfm_pair[3].sample(torch.ones(1, 4, dtype=torch.long), 0.5)
 
 
-def test_sample_with_duration_prediction_is_not_ported_yet():
-    """Duration prediction is ported now: without ``max_frames`` the sample runs
+def test_sample_with_duration_prediction_matches_jax():
+    """A duration-predicting model samples as the JAX one: without ``max_frames`` it runs
     at the largest predicted total, as the JAX package's eager apply does."""
     _, jmodel, variables = _jax_cfm(seed=2, predict_duration=True)
     port = _torch_cfm(variables, predict_duration=True)
@@ -368,7 +368,7 @@ def test_waveform_lengths_match_jax(frames):
 def test_hifigan_config_from_dict_matches_jax():
     d = {"upsample_rates": [4, 4], "upsample_kernel_sizes": [8, 8], "resblock_dilation_sizes": [[1, 2]], "leaky_relu_slope": 0.2}
     ours, theirs = torch_hifigan.HifiGanConfig.from_dict(d), jax_hifigan.HifiGanConfig.from_dict(d)
-    assert ours.__dict__ == {k: v for k, v in theirs.__dict__.items() if k != "initializer_range"}
+    assert ours.__dict__ == theirs.__dict__
 
 
 # ---------------------------------------------------------------------------
