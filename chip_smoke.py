@@ -20,7 +20,10 @@
    seed, bf16), counts the kernel launches of that run, and checks lengths,
    finiteness and a small-input agreement with the plain path on the CPU;
    then serves one batch with stage fusion on (3 K3, no K2) against the same
-   batch without it. The models follow the JAX package's initializers, which
+   batch without it, and in f32 one mu-law batch through the server (its
+   first rows within 1 code of the CPU's from the same noise) and one
+   ``synthesize(..., ode_method="midpoint")`` batch (128 K1 + 9 K2) against
+   the CPU. The models follow the JAX package's initializers, which
    leave a random vocoder's output near 1e-5: every comparison of a random
    model's output is relative to its reference's peak, and every PCM16
    check runs on a generator whose conv_post weight is scaled by
@@ -61,12 +64,18 @@
    128), its output and dq, dk, dv against the plain version's, timed beside
    SDPA forward + backward; the CFM trainer on a fixed 2 700 x 100 batch (20
    steps, then remat), the HiFi-GAN trainer at 64 x 16 080 samples (10 steps,
-   no K2 or K3 launch), each also one small f32 step against the CPU; then
+   no K2 or K3 launch), each also one small f32 step against the CPU
+   (metrics, parameters, and each tensor's gradient and update relative to
+   its norm); scale ci's 16 GAN steps on the card against the CPU
+   (``gan_drift``: each step's losses, gradients and updates from the CPU's
+   state, and the two trajectories' weight changes), beside it the
+   kill/resume checks (a HiFi-GAN loop run killed with SIGKILL after a
+   mid-epoch checkpoint and resumed against one run straight through, equal
+   generator hashes; step 17's ``gan_longrun resume-check``); then
    ``train_flow_matching`` and ``train_hifigan`` on synthetic corpora
-   (checkpoints, resume, validation through K2), a HiFi-GAN run killed with
-   SIGKILL after a mid-epoch checkpoint and resumed against one run straight
-   through (equal generator hashes), and the exported pair synthesizing
-   through ``load_pretrained``;
+   (checkpoints, resume, validation through K2), with the card to
+   themselves, and the exported pair synthesizing through
+   ``load_pretrained``;
 14. trains the speech LM at the full width of configs/speechlm/hubert.yaml:
    K1 at the LM step's shape (96, 12, 128, 64), causal with a
    ``UnitTextDataset`` batch's pad mask, its output and gradients against
@@ -83,7 +92,7 @@
 15. runs the eval stack: ``NativeWhisperASR`` at large-v3's full widths
    (seeded bf16 weights written as an HF directory through the port's
    safetensors writer, a synthetic byte-level tokenizer of all 51 866 ids)
-   on 8 waves of 8-10 s and one of 70 s (three windows), 200 new tokens;
+   on 8 waves of 8-10 s and one of 70 s (three windows), 100 new tokens;
    ``NativeUTMOS`` at full width from a lightning-shaped torch save and from
    safetensors on 8 waves of 1-10 s; ``pipeline.evaluate`` on the
    full-width decoder over 32 utterances with the stand-in scorers and with
@@ -102,7 +111,9 @@
    ``cli.speechlm.main`` ``eval`` and ``generate`` on the LM loop's
    checkpoint; calls ``graft_entry.entry()`` (the flagship decoder, 64 K1 +
    9 K2, timed); runs ``run_e2e_quality`` (scale ``E2E_SCALE``) with the JAX
-   test's quality gates, beside the JAX package's numbers of E2E_QUALITY.md;
+   test's quality gates, beside the JAX package's numbers of E2E_QUALITY.md,
+   then the quality run's GAN alone at the port's learning scale
+   (``GAN_LEARNING``): the trained held-out mel-L1 at most 0.7 x the draw's;
 17. runs the JAX package's tools as a user does, each a process through
    its module entry point: ``scripts.convert_checkpoints`` of all five kinds
    from sources written from seeded full-width models (mHuBERT as
@@ -112,8 +123,9 @@
    audio from the same noise, state dicts); ``scripts.fit_kmeans`` (k =
    2000 on 16 files with the converted mHuBERT: K1) and an encode through
    the fitted codebook (K4); ``scripts.gan_longrun run`` at full width (K2
-   in its validations), ``report`` on its event files, ``resume-check``
-   (bit-equal after SIGKILL);
+   in its validations), ``report`` on its event files, and the verdict of
+   ``resume-check`` (bit-equal after SIGKILL), which ran beside step 13's
+   ``gan_drift``;
 18. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
    tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
    CFM loop's dev sweep, the trained pair's decoder, the LM loop's scoring
@@ -1235,6 +1247,96 @@ def serving_fused_phase(torch, np, A, M, voc_cfg):
     return launches
 
 
+OPTIONS_CPU_ROWS = 2  # the rows of the options' batches recomputed on the CPU (each row is computed alone)
+
+
+def serving_options_phase(torch, np, A, M) -> dict:
+    """The serving options no earlier run took on the card, at the full
+    width of configs/resynth/mhubert-expresso-2000.yaml in f32 on both sides
+    (TF32 off), one batch of SERVE_BATCH x ~500 units each:
+
+    * mu-law: ``SynthesisServer(..., mulaw=True)`` on a generator whose
+      conv_post is scaled by WIRE_GAIN; its first OPTIONS_CPU_ROWS requests
+      recomputed on the CPU (``synthesize(..., mulaw=True)``) from the noise
+      the server drew (its generator, seed 0, drawn again), every code
+      within 1; the share of codes other than silence's (fails under
+      WIRE_MIN_NONZERO);
+    * midpoint: ``synthesize(..., ode_method="midpoint")`` of the same ids
+      and noise on the generator without the gain, its first rows against
+      the CPU's relative to the CPU waveform's peak (2e-3, the f32 tolerance
+      of ``slice_vs_cpu_plain``).
+
+    Launches: 64 K1 + 9 K2 for the Euler batch at dt 0.0625, 128 K1 (two
+    velocity evaluations a step) + 9 K2 for the midpoint one."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.dsp.mulaw import mulaw_encode
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
+    from speech_resynth_torch.pipeline.serving import SynthesisServer
+
+    cfm_cfg = CFMConfig(vocab_size=2000)
+    decoders = {dev: ConditionalFlowMatchingWithHifiGan.from_config(cfm_cfg, policy=FLOAT32, generator=torch.Generator().manual_seed(0),
+                                                                    device=dev) for dev in ("cuda", "cpu")}
+    voc_cfg = decoders["cuda"].vocoder.config
+    rng = np.random.default_rng(17)
+    seqs = [rng.integers(1, cfm_cfg.vocab_size + 1, int(n)).astype(np.int64) for n in rng.integers(SERVE_UNITS - 20, SERVE_UNITS + 1, SERVE_BATCH)]
+    ids = np.zeros((SERVE_BATCH, BUCKET), np.int64)
+    for j, seq in enumerate(seqs):
+        ids[j, : len(seq)] = seq
+    rows = ids[:OPTIONS_CPU_ROWS]
+    # the noise the server draws for its one batch: its generator (seed 0) on the card, one randn call
+    x0 = torch.randn((SERVE_BATCH, BUCKET, cfm_cfg.dim_in), generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    x0_rows = x0[:OPTIONS_CPU_ROWS].cpu()
+    runs, launches, expected = {}, {}, {}
+
+    for dec in decoders.values():
+        wire_ready(torch, dec.vocoder)
+    server = SynthesisServer(decoders["cuda"], batch_size=SERVE_BATCH, dt=0.0625, truncation_value=1.0, mulaw=True)
+    torch.cuda.synchronize()
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    codes = server.synthesize_many(seqs)
+    wall = time.perf_counter() - t0
+    launches["mulaw"] = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                         "mrf_stage": M.mrf_stage_kernel.launches}
+    expected["mulaw"] = {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0}
+    cpu_codes, cpu_lengths = decoders["cpu"].synthesize(rows, dt=0.0625, truncation_value=1.0, x0=x0_rows, mulaw=True)
+    silence = int(mulaw_encode(torch.zeros(1))[0])
+    shapes_ok = all(c.dtype == np.uint8 and c.shape == (int(voc_cfg.waveform_lengths(len(q))),) for c, q in zip(codes, seqs))
+    worst = max(int(np.abs(codes[j].astype(np.int32) - cpu_codes[j, : int(cpu_lengths[j])].numpy().astype(np.int32)).max())
+                for j in range(OPTIONS_CPU_ROWS)) if shapes_ok else math.inf
+    share = sum(int(np.count_nonzero(c != silence)) for c in codes) / sum(c.size for c in codes)
+    runs["mulaw"] = {"wall_seconds": wall, "audio_seconds": sum(c.size for c in codes) / SAMPLE_RATE, "max_code_diff_vs_cpu": worst,
+                     "tol_codes": 1, "cpu_rows": OPTIONS_CPU_ROWS, "silence_code": silence, "non_silence_share": share,
+                     "wire_gain": WIRE_GAIN}
+
+    with torch.no_grad():
+        for dec in decoders.values():
+            dec.vocoder.conv_post.weight.div_(WIRE_GAIN)  # a power of two: the draw again, exactly
+    torch.cuda.synchronize()
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    wav, lengths = decoders["cuda"].synthesize(ids, dt=0.0625, truncation_value=1.0, x0=x0, ode_method="midpoint")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["midpoint"] = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                            "mrf_stage": M.mrf_stage_kernel.launches}
+    expected["midpoint"] = {"flash_attention": 128, "mrf_branch": 9, "mrf_stage": 0}
+    cpu_wav, cpu_len = decoders["cpu"].synthesize(rows, dt=0.0625, truncation_value=1.0, x0=x0_rows, ode_method="midpoint")
+    err, peak = rel_err(np, wav[:OPTIONS_CPU_ROWS], cpu_wav)
+    runs["midpoint"] = {"wall_seconds": wall, "max_rel_err_vs_cpu": err, "ref_peak": peak, "tol": 2e-3, "cpu_rows": OPTIONS_CPU_ROWS,
+                        "lengths_equal": bool(torch.equal(lengths[:OPTIONS_CPU_ROWS].cpu(), cpu_len))}
+    record = {"phase": "serving_options", "batch": SERVE_BATCH, "bucket": BUCKET, "runs": runs, "launches": launches,
+              "expected": expected}
+    print(json.dumps(record))
+    if (launches != expected or not shapes_ok or worst > 1 or share < WIRE_MIN_NONZERO or err > 2e-3
+            or not runs["midpoint"]["lengths_equal"] or not torch.isfinite(wav).all()):
+        fail(f"serving options: {record}")
+    del decoders, server
+    torch.cuda.empty_cache()
+    return launches
+
+
 def streaming_phase(torch, np, M) -> dict:
     """StreamingVocoder on the full-width vocoder of
     configs/resynth/mhubert-expresso-2000.yaml, chunk 50 and the analytic
@@ -2296,6 +2398,44 @@ def train_hifigan_phase(torch, np, M) -> dict:
     return {"launches": launches, "record": record, "card_vs_cpu": small}
 
 
+GAN_DRIFT_STEPS = 16  # scale ci's one epoch of the quality run's GAN
+
+
+def gan_drift_phase(torch, M) -> dict:
+    """Scale ci's GAN training on the card against the CPU over its 16
+    steps (``tests/test_torch_cuda.py:gan_steps_card_vs_cpu``, f32, TF32
+    off): from the CPU's state at every step, the card's three losses within
+    the helper's GAN_LOSS_TOL, at step 1 each tensor's gradient and update
+    within GAN_STEP1_TOL, at every step each module's (gen, mpd, msd, its
+    tensors as one vector) gradient, and update against the CPU optimizer's
+    replay of its state and gradients, within GAN_MODULE_TOL; the card's own
+    trajectory's final ``gan_weight_change`` within GAN_WEIGHT_TOL of the
+    CPU's. The steps launch neither K2 nor K3 (the generator records a
+    gradient). The kill/resume checks' processes share the card and the
+    host with it (``background_checks``): its seconds time nothing."""
+    from test_torch_cuda import GAN_WEIGHT_TOL, gan_steps_card_vs_cpu
+
+    M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    r = gan_steps_card_vs_cpu(GAN_DRIFT_STEPS)
+    launches = {"mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    cpu, card = r["gan_weight_change"]
+    rel = abs(card - cpu) / cpu
+    record = {
+        "phase": "gan_drift", "seconds": time.perf_counter() - t0, "steps": r["steps"], "tol": r["tol"],
+        "threads": r["threads"],
+        "per_step": [{k: x[k] for k in ("step", "loss_rel", "grad_rel_module", "update_replayed_rel_module", "update_rel_module",
+                                        "grad_rel_worst", "update_rel_worst", "free_grad_rel_module", "free_update_rel_module",
+                                        "gan_weight_change")} for x in r["records"]],
+        "first_divergence": r["first_divergence"],
+        "gan_weight_change": {"cpu": cpu, "cuda": card, "rel_diff": rel, "tol": GAN_WEIGHT_TOL}, "launches": launches,
+    }
+    print(json.dumps(record))
+    if r["first_divergence"] is not None or rel > GAN_WEIGHT_TOL or any(launches.values()):
+        fail(f"the card's GAN steps part from the CPU's: {record['first_divergence']}, weight change {cpu} (cpu) {card} (card)")
+    return record
+
+
 def write_train_corpora(torch, np, audio_io, root: Path) -> dict:
     """A CFM corpus (LOOP_UTTS utterances of 100-140 units and mels, one unit
     JSON) and a HiFi-GAN corpus (LOOP_WAVS speech-like wavs of 1.2-2 s with
@@ -2454,13 +2594,49 @@ def kill_resume_check(torch, root: Path, config: dict) -> dict:
     record = {"phase": "train_kill_resume", "killed_with": "SIGKILL", "killed_at_checkpoint": 3, "checkpoints_when_killed": steps,
               "steps": {k: out[k]["step"] for k in out}, "generator_sha256": hashes, "bit_equal": hashes["straight"] == hashes["resumed"],
               "deterministic_algorithms": True, "nondeterministic_ops": [], "seconds": time.perf_counter() - t0}
-    print(json.dumps(record))
     if steps != [3] or not record["bit_equal"] or set(record["steps"].values()) != {4}:
         fail(f"kill/resume: {record}")
     return record
 
 
-def train_loops_phase(torch, np, A, M, root: Path) -> dict:
+def background_checks(torch, np, root: Path):
+    """Start the two kill/resume checks in processes of their own, to run
+    beside ``gan_drift_phase`` (a check whose seconds nobody reads), so that
+    no timed window of the loops or of ``gan_longrun run`` shares the card
+    with them: the HiFi-GAN loop's (``kill_resume_check``, on the training
+    corpora written here under ``root`` for ``train_loops_phase``) and
+    ``gan_longrun resume-check``'s (8 steps on a 32-utterance corpus of its
+    own: SIGKILL after a mid-epoch checkpoint, then resume; bit-equal
+    generators). Returns a function that waits for both and returns
+    (the loop's record, the tool's verdict)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from speech_resynth_torch.dsp import audio_io
+
+    t0 = time.perf_counter()
+    write_train_corpora(torch, np, audio_io, root)
+    corpus_seconds = time.perf_counter() - t0
+    pool = ThreadPoolExecutor(2)
+    loop = pool.submit(kill_resume_check, torch, root,
+                       loop_config(root, "wavs.txt", checkpoint_interval=3, validation_interval=1000))
+    tool = pool.submit(tool_result, tool_start("gan_longrun", "resume-check", root / "gan_resume", *GAN_RESUME),
+                       "gan_longrun resume-check", 900)
+
+    def wait() -> tuple:
+        kill, (lines, _) = loop.result(), tool.result()
+        pool.shutdown()
+        print(json.dumps(kill))
+        verdict = json.loads(next(l for l in reversed(lines) if l.startswith('{"kill_step"')))
+        print(json.dumps({"phase": "background_checks", "corpus_seconds": corpus_seconds,
+                          "seconds": time.perf_counter() - t0, "gan_longrun_resume_check": verdict}))
+        if not verdict["step_exact"] or verdict["kill_step"] != 3 or verdict["total_steps"] != 8:
+            fail(f"gan_longrun resume-check: {verdict}")
+        return kill, verdict
+
+    return wait
+
+
+def train_loops_phase(torch, np, A, M, root: Path, kill: dict) -> dict:
     """The training loops through the config entries on synthetic corpora:
     ``train_flow_matching`` at full width and batch 2 700 (2 steps an epoch)
     for 2 epochs saving every epoch (no vocoder export yet: no dev sweep);
@@ -2470,17 +2646,16 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
     to 3 epochs (resumes at step 4, ends at 6), whose save runs the dev
     sweep through the exported vocoder (``dev/WER``, ``dev/CER``,
     ``dev/MOS``, ``dev/MOS (REF)``, five ``hyp/`` clips; K1 and K2); the
-    kill/resume check; the exported pair through ``load_pretrained``
-    synthesizing one batch."""
+    exported pair through ``load_pretrained`` synthesizing one batch. The corpora under ``root``
+    are ``background_checks``': its kill/resume check (``kill``) ran before
+    this phase, so the loops' seconds, steps per second and MFU are taken
+    with the card to themselves."""
     from speech_resynth_torch.core.config import config_from_dict
-    from speech_resynth_torch.dsp import audio_io
     from speech_resynth_torch.models.composite import ConditionalFlowMatchingWithHifiGan
     from speech_resynth_torch.pipeline import train_loops
     from speech_resynth_torch.pipeline.data import MelDataset, bucket_length
 
-    t0 = time.perf_counter()
-    write_train_corpora(torch, np, audio_io, root)
-    record = {"phase": "train_loops", "corpus_seconds": time.perf_counter() - t0}
+    record = {"phase": "train_loops"}
 
     def cfm_run(epochs):
         t1 = time.perf_counter()
@@ -2543,8 +2718,6 @@ def train_loops_phase(torch, np, A, M, root: Path) -> dict:
     if cfm_launches != want:
         fail(f"train_flow_matching launched {cfm_launches} in 6 steps and its dev sweep, expected {want}")
 
-    kill = kill_resume_check(torch, root, loop_config(root, "wavs.txt", checkpoint_interval=3, validation_interval=1000))
-
     decoder = ConditionalFlowMatchingWithHifiGan.load_pretrained(root / "flow_matching" / "hf", root / "hifigan", device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(45)
     ids = torch.randint(1, CFM_TRAIN["vocab_size"] + 1, (EXPORT_BATCH, EXPORT_UNITS), generator=gen, device="cuda")
@@ -2569,6 +2742,7 @@ LM_TRAIN_BATCH, LM_TRAIN_TOKENS = 96, 128  # configs/speechlm/hubert.yaml batch_
 LM_STEPS = 20
 LM_BPE_IDS = 400  # the continuation phase's BPE vocabulary: the corpora's ids
 LM_LOOP_LINES, LM_LOOP_EPOCHS = 2 * LM_TRAIN_BATCH, 3  # two steps an epoch
+LM_KILL_EPOCHS = 2  # the kill/resume check's and the torchrun rank's epochs: killed after the first
 LM_SLM21_PAIRS = 48  # 96 items per sLM21 task: one scoring batch each
 LM_GEN_TOKENS = 64
 
@@ -2734,7 +2908,7 @@ def lm_run(root: Path, config: dict, name: str, stop_at: int = -1, env: Optional
 
 
 def lm_kill_resume_check(torch, root: Path, config: dict) -> dict:
-    """``train_speechlm`` at 2 steps an epoch for 3 epochs in processes of
+    """``train_speechlm`` at 2 steps an epoch for LM_KILL_EPOCHS epochs in processes of
     their own under ``torch.use_deterministic_algorithms(True)``: once
     straight through; once killed with SIGKILL right after epoch 1's
     checkpoint (step 2), then resumed (at epoch 2, as the JAX loop resumes).
@@ -2754,7 +2928,7 @@ def lm_kill_resume_check(torch, root: Path, config: dict) -> dict:
               "seconds": time.perf_counter() - t0}
     print(json.dumps(record))
     shutil.rmtree(root / "kr_resumed")
-    if steps != [2] or not record["bit_equal"] or set(record["steps"].values()) != {2 * LM_LOOP_EPOCHS}:
+    if steps != [2] or not record["bit_equal"] or set(record["steps"].values()) != {2 * LM_KILL_EPOCHS}:
         fail(f"LM kill/resume: {record}")
     return {**record, "straight": out["straight"], "straight_hash": hashes["straight"]}
 
@@ -2877,6 +3051,7 @@ def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
     print(json.dumps(record))
     torch.cuda.empty_cache()
     shutil.rmtree(root / "loop")  # its checkpoints (1.65 GB each) have been read: room for the runs below
+    config = {**config, "optim": {**config["optim"], "epoch": LM_KILL_EPOCHS}}
     one_rank = start_one_rank_run(root, config)  # beside the kill/resume runs: its own process, deterministic
     kill = lm_kill_resume_check(torch, root, config)
     distributed = distributed_phase(torch, root, one_rank, kill)
@@ -2928,14 +3103,14 @@ def distributed_phase(torch, root: Path, proc, kill: dict) -> dict:
 
 # -- the eval stack: Whisper ASR, UTMOS MOS, evaluate ---------------------------------
 
-WHISPER_BATCH, WHISPER_NEW_TOKENS = 8, 200  # NativeWhisperASR's window batch and token budget
+WHISPER_BATCH, WHISPER_NEW_TOKENS = 8, 100  # NativeWhisperASR's window batch and token budget
 WHISPER_LONG_SECONDS = 70  # a wave of three 30-s windows (step 20 s)
 WHISPER_PROFILE_TOKENS = 20  # the timed and the profiled window batch's tokens (~1 100 kernels a step)
 UTMOS_WAVES = 8
 EVAL_UTTS = 32  # configs/resynth/mhubert-expresso-2000.yaml flow_matching_with_hifigan.batch_size: one decoder batch
 # a 10-s utterance's transcript is ~30-60 tokens; random weights never give eos, so evaluate's
 # native ASR stops at this cap instead
-EVAL_NEW_TOKENS = 64
+EVAL_NEW_TOKENS = 32
 EVAL_PROFILE_UTTS, EVAL_PROFILE_TOKENS = 8, 10
 WORDS = ("the", "cat", "sat", "on", "a", "mat", "in", "nineteen", "eighty", "four", "we", "met", "hello", "world", "speech")
 
@@ -3479,14 +3654,14 @@ def entry_phase(torch, A, M) -> dict:
     return {"launches": launches, "ids": list(ids.shape)}
 
 
-def e2e_branch_shapes(e2e, scale: str):
+def e2e_branch_shapes(p: dict):
     """(vocoder config, the (C, T, K) of K2's launches per vocoder call) of
-    the quality run's generator, evaluated in f32 on EVAL_PAD_FRAMES frames:
-    its branches that K2 takes (``ResidualBlock.fused``)."""
+    the quality run's generator at the scale dict ``p``, evaluated in f32 on
+    EVAL_PAD_FRAMES frames: its branches that K2 takes (``ResidualBlock.fused``)."""
     from speech_resynth_torch.core.precision import FLOAT32
     from speech_resynth_torch.models.hifigan import HifiGanConfig, HifiGanGenerator
+    from speech_resynth_torch.pipeline import e2e_quality as e2e
 
-    p = e2e.SCALES[scale]
     voc = HifiGanConfig(upsample_initial_channel=p["gan_channels"], resblock_kernel_sizes=(3, 7),
                         resblock_dilation_sizes=((1, 3), (1, 3)))
     blocks = HifiGanGenerator(voc, FLOAT32).resblocks
@@ -3538,7 +3713,7 @@ def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) ->
     launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
                 "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
     p = E.SCALES[scale]
-    voc, branches = e2e_branch_shapes(E, scale)
+    voc, branches = e2e_branch_shapes(p)
     scoring = [list(b["input_ids"].shape) for b in load_named_units_from_json(str(root / "lm_corpus" / "lm_pairs.json"), 16, 2)]
     k1_per_forward = p["lm_layers"] if p["lm_hidden"] // 2 in A.FLASH_HEAD_DIMS else 0  # 2 heads
     want = {"flash_attention": k1_per_forward * len(scoring), "codebook_assign": 0,
@@ -3564,6 +3739,43 @@ def e2e_quality_phase(torch, np, A, C, M, root: Path, scale: str = E2E_SCALE) ->
             "wall_seconds": wall}
 
 
+# The port's GAN learning check beside the quality run's gate: at scale ci the
+# JAX draw's generator stays at the mel-L1 of silence, and on an H100 so does one
+# of 32 or 64 channels for 1 200 steps at batch 16, while scale chip's GAN (128
+# channels, batches of 16 crops of 16 frames, 192 + 16 utterances) leaves it
+# within 100 steps (3.617 -> 2.053). 10 epochs of 12 steps.
+GAN_LEARNING = dict(n_train=192, n_eval=16, gan_channels=128, gan_epochs=10, gan_batch=16, frames_per_seg=16)
+GAN_LEARNING_MAX = 0.7  # trained held-out mel-L1 at most this times the draw's, the form of the CFM gate
+
+
+def gan_learning_phase(torch, np, A, C, M, root: Path) -> dict:
+    """The quality run's GAN at the port's learning scale GAN_LEARNING
+    (``e2e_quality.run_gan_quality``: ``_gan_config``, the seed-0 and
+    seed-99 corpora, GAN seed 1234, ``_eval_vocoder``): fails unless the
+    trained held-out mel-L1 is at most GAN_LEARNING_MAX times the draw's.
+    Launches: K2 (f32) in each evaluation's vocoder calls, one per held-out
+    utterance for each of the two generators; none in training."""
+    from speech_resynth_torch.pipeline import e2e_quality as E
+
+    A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    t0 = time.perf_counter()
+    r = E.run_gan_quality(root, GAN_LEARNING)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+    voc, branches = e2e_branch_shapes(GAN_LEARNING)
+    want = {"flash_attention": 0, "codebook_assign": 0, "mrf_branch": 2 * GAN_LEARNING["n_eval"] * len(branches), "mrf_stage": 0}
+    ratio = r["gan_mel_l1_trained"] / r["gan_mel_l1_untrained"]
+    record = {"phase": "gan_learning", "scale": GAN_LEARNING, "steps": r["gan_steps"], "wall_seconds": wall, "results": r,
+              "trained_over_untrained": ratio, "max": GAN_LEARNING_MAX, "launches": launches, "expected": want}
+    print(json.dumps(record))
+    if not np.isfinite(r["gan_mel_l1_trained"]) or ratio > GAN_LEARNING_MAX or launches != want:
+        fail(f"the GAN at the learning scale: {record}")
+    return {"launches": launches, "branches": branches, "vocoder": voc, "n_eval": GAN_LEARNING["n_eval"], "results": r,
+            "wall_seconds": wall}
+
+
 # Each tool in a process of its own through its module entry point, as a user
 # runs it (``python -m speech_resynth_torch.scripts.<tool>``); at exit the
 # process prints its kernels' launch counts on a last line of its own.
@@ -3578,6 +3790,7 @@ runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 """
 FIT_FILES, FIT_ITERS = 16, 5  # fit_kmeans: 16 files of 8-10 s, padded to 20 s in 2 batches of 8 (999 frames)
 GAN_RUN = ("--batch", "16", "--n-utts", "64")  # gan_longrun: 4 steps an epoch on a 64-utterance corpus
+GAN_RESUME = ("--batch", "16", "--n-utts", "32")  # its resume-check: 2 steps an epoch, 8 steps, killed at step 3
 GAN_EPOCHS, GAN_VAL = 3, 6  # 12 steps, validations at steps 6 and 12
 
 
@@ -3598,7 +3811,7 @@ def tool_result(proc, what: str, timeout: int = 600) -> tuple:
     return lines[:-1], json.loads(lines[-1].split(" ", 1)[1])
 
 
-def tools_phase(torch, np, A, C, M, root: Path) -> dict:
+def tools_phase(torch, np, A, C, M, root: Path, resume: dict) -> dict:
     """The JAX package's tools as the port runs them, each a process:
     ``convert_checkpoints`` of every kind from sources written from the
     port's seeded full-width models (mHuBERT as ``pytorch_model.bin`` and as
@@ -3608,9 +3821,9 @@ def tools_phase(torch, np, A, C, M, root: Path) -> dict:
     against their sources (units, audio from the same noise, state dicts);
     ``fit_kmeans`` on 16 speech-like files with the converted mHuBERT (K1),
     its codebook encoding through ``by_name`` (K4); ``gan_longrun run`` at
-    full width (K2 in its validations), ``report`` on its event files and
-    ``resume-check`` (SIGKILL after a mid-epoch checkpoint, then resume;
-    bit-equal generators)."""
+    full width (K2 in its validations) and ``report`` on its event files.
+    ``resume`` is ``gan_longrun resume-check``'s verdict from
+    ``background_checks``, run before this phase."""
     import dataclasses
 
     from speech_resynth_torch.core.precision import BF16_INFERENCE, FLOAT32
@@ -3751,7 +3964,7 @@ def tools_phase(torch, np, A, C, M, root: Path) -> dict:
     if fit_encode != {"flash_attention": 11, "codebook_assign": 1} or int(fit_units.max()) >= vocab:
         fail(f"the fitted codebook's encode: {fit_encode}")
 
-    # gan_longrun: run, report, resume-check
+    # gan_longrun: run, report
     work = root / "gan"
     t0 = time.perf_counter()
     _, gan_launches = tool_result(tool_start("gan_longrun", "run", work, *GAN_RUN, "--epochs", GAN_EPOCHS,
@@ -3780,14 +3993,8 @@ def tools_phase(torch, np, A, C, M, root: Path) -> dict:
             or report[0] != "| step | loss_gen | loss_disc | mel_error | lr | mel_spec_error | wall steps/s |"
             or not report[-1].startswith("- non-finite scalar events: none") or not rate):
         fail(f"gan_longrun report: {record['gan_longrun']}")
-    t0 = time.perf_counter()
-    lines, _ = tool_result(tool_start("gan_longrun", "resume-check", work, *GAN_RUN), "gan_longrun resume-check", 900)
-    record["resume_check_seconds"] = time.perf_counter() - t0
-    verdict = json.loads(next(l for l in reversed(lines) if l.startswith('{"kill_step"')))
-    record["resume_check"] = verdict
+    record["resume_check"] = resume
     print(json.dumps(record))
-    if not verdict["step_exact"] or verdict["kill_step"] != 6 or verdict["total_steps"] != 16:
-        fail(f"gan_longrun resume-check: {verdict}")
     return {"convert": convert_launches, "fit_kmeans": fit_launches, "fit_batches": fit_batches, "fit_encode": fit_encode,
             "gan_longrun": gan_launches, "dev_batches": dev_batches, "validations": validations}
 
@@ -3909,6 +4116,8 @@ def main() -> int:
     lap("slice_phase")
     serving_fused = serving_fused_phase(torch, np, A, M, voc_cfg)
     lap("serving_fused_phase")
+    options = serving_options_phase(torch, np, A, M)
+    lap("serving_options_phase")
     enc, encoding = encoder_phase(torch, np, A, C)
     lap("encoder_phase")
     resynth = resynth_phase(torch, np, A, M, C, enc)
@@ -3936,8 +4145,14 @@ def main() -> int:
     lap("train_cfm_phase")
     train_gan = train_hifigan_phase(torch, np, M)
     lap("train_hifigan_phase")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
-        loops = train_loops_phase(torch, np, A, M, Path(train_tmp))
+    train_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    wait_for_checks = background_checks(torch, np, Path(train_tmp.name))
+    drift = gan_drift_phase(torch, M)
+    lap("gan_drift_phase (beside the kill/resume checks)")
+    kill, resume = wait_for_checks()
+    lap("background_checks (the rest of)")
+    loops = train_loops_phase(torch, np, A, M, Path(train_tmp.name), kill)
+    train_tmp.cleanup()
     lap("train_loops_phase")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_tmp:
         cli = cli_phase(torch, np, A, C, M, Path(cli_tmp))
@@ -3962,13 +4177,16 @@ def main() -> int:
         evaluation = evaluate_phase(torch, np, A, M, Path(eval_tmp), asr, mos)
         del asr, mos
         lap("evaluate_phase")
-        tools = tools_phase(torch, np, A, C, M, Path(eval_tmp))  # converts the Whisper and UTMOS files written above
+        tools = tools_phase(torch, np, A, C, M, Path(eval_tmp), resume)  # converts the Whisper and UTMOS files written above
     lap("tools_phase")
     entry_run = entry_phase(torch, A, M)
     lap("entry_phase")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as e2e_tmp:
         e2e = e2e_quality_phase(torch, np, A, C, M, Path(e2e_tmp))
     lap("e2e_quality_phase")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_learning_") as learn_tmp:
+        learning = gan_learning_phase(torch, np, A, C, M, Path(learn_tmp))
+    lap("gan_learning_phase")
     torch.cuda.synchronize()
 
     # data-dependent shapes, held after their runs: the duration config's 64-multiple
@@ -4034,6 +4252,7 @@ def main() -> int:
     k2.append(mrf_path(torch, F, M, gen, voc_cfg, "entry decoder", entry_run["ids"][1], entry_run["ids"][0]))
     if e2e["branches"]:
         k2.append(mrf_path(torch, F, M, gen, e2e["vocoder"], "e2e quality vocoder (f32 on the path)", 48, 1, e2e["branches"]))
+    k2.append(mrf_path(torch, F, M, gen, learning["vocoder"], "gan learning vocoder (f32 on the path)", 48, 1, learning["branches"]))
     for B_, L_ in sorted(set(map(tuple, e2e["scoring_shapes"]))):
         k1.append(attention_shape(torch, F, A, gen, "e2e quality pair scoring", B_, 2, L_, e2e["head_dim"], L_, L_, causal=True,
                                   masked=False))
@@ -4048,21 +4267,23 @@ def main() -> int:
 
     # the shape of every launch counted above, from each path's structure and frames
     by_path = {
-        "serving": serving, "serving_fused": serving_fused, "encoder": encoding,
+        "serving": serving, "serving_fused": serving_fused, "serving_mulaw": options["mulaw"],
+        "synthesize_midpoint": options["midpoint"], "encoder": encoding,
         **{f"resynth_{k}": v["launches"] for k, v in resynth.items()},
         "streaming": streaming[False]["launches"], "streaming_fused": streaming[True]["launches"],
         "lm_scoring": lm_scoring,
         **{f"continuation_{k}": continuation[k]["launches"] for k in ("greedy", "sampled")},
         **{f"continuation_speculative_{k}": speculative[k]["launches"] for k in ("greedy", "sampled")},
         "slm21_tokenize": slm21["tokenize"], "slm21_scoring": slm21["scoring"], "preprocess_tokenize": preprocess["launches"],
-        "train_cfm": train_cfm["launches"], "train_hifigan": train_gan["launches"], "train_loops_cfm": loops["cfm"],
+        "train_cfm": train_cfm["launches"], "train_hifigan": train_gan["launches"], "gan_drift": drift["launches"],
+        "train_loops_cfm": loops["cfm"],
         "train_loops_hifigan": loops["hifigan"], "train_loops_export": loops["export"],
         "train_speechlm": train_lm["launches"], "speechlm_loop_validation": lm_loop["validation"],
         "speechlm_loop_eval": lm_loop["eval"],
         **{f"speechlm_loop_generate_{k}": v for k, v in lm_loop["generate"].items()},
         "whisper": whisper, "utmos": utmos, **{f"evaluate_{k}": v["launches"] for k, v in evaluation["runs"].items()},
         "cli_resynth": cli["launches"], "cli_speechlm_eval": lm_loop["cli_eval"], "cli_speechlm_generate": lm_loop["cli_generate"],
-        "entry": entry_run["launches"], "e2e_quality": e2e["launches"],
+        "entry": entry_run["launches"], "e2e_quality": e2e["launches"], "gan_learning": learning["launches"],
         "tools_convert": tools["convert"], "tools_fit_kmeans": tools["fit_kmeans"], "tools_fit_encode": tools["fit_encode"],
         "tools_gan_longrun": tools["gan_longrun"],
     }
@@ -4092,6 +4313,9 @@ def main() -> int:
         decoder_batch("serving", BUCKET)
     for _ in range(serving_fused["mrf_stage"] // 3):
         decoder_batch("serving_fused", BUCKET, fused=True)
+    decoder_batch("serving_mulaw", BUCKET)
+    add("flash_attention", "synthesize_midpoint", [SERVE_BATCH, 2, BUCKET, 128], 2 * 64)  # two velocity evaluations a step
+    vocoder_call("synthesize_midpoint", BUCKET, SERVE_BATCH, False)
     for _ in range(encoding["codebook_assign"]):
         encoder_batch("encoder", ENC_FRAMES)
     for label, run in resynth.items():
@@ -4153,6 +4377,9 @@ def main() -> int:
     for _ in range(3 * e2e["n_eval"]):
         for C_, T_, K_ in e2e["branches"]:
             add("mrf_branch", "e2e_quality", [1, C_, T_, K_], 1)
+    for _ in range(2 * learning["n_eval"]):
+        for C_, T_, K_ in learning["branches"]:
+            add("mrf_branch", "gan_learning", [1, C_, T_, K_], 1)
     for B_, L_ in e2e["scoring_shapes"]:
         add("flash_attention", "e2e_quality", [B_, 2, L_, e2e["head_dim"]], e2e["k1_per_forward"])
     for _ in range(2):  # the source's and the converted encoder and decoder

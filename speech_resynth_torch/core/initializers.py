@@ -18,6 +18,11 @@ fit that reading; the models draw those by ``normal`` only, which reads no fan.
 Each initializer is ``init(shape, generator) -> tensor``: f32, drawn on the
 generator's device (a CPU ``torch.Generator``, or a CUDA one for draws on the
 card), copied into the parameter's dtype and device by ``init_by_rules``.
+Every draw maps the generator's uniform draws one to one: the truncated
+normal is drawn by the inverse CDF (``truncated_normal_``), as flax draws
+it, and not by ``torch.nn.init.trunc_normal_``, which draws by inverse CDF
+in torch 2.11 and by rejection in 2.13 (other values from one seed, so a
+machine of each drew other discriminators).
 """
 
 from __future__ import annotations
@@ -47,6 +52,16 @@ def _empty(shape, generator: torch.Generator) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
 
 
+def truncated_normal_(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``out`` with N(0, 1) cut to [-2, 2] by the inverse CDF
+    (``jax.random.truncated_normal``'s method): uniform draws between the
+    bounds' CDFs (as 2 * CDF - 1), mapped through sqrt(2) * erfinv, one
+    value for each uniform draw."""
+    cdf_lo, cdf_hi = ((1.0 + math.erf(x / math.sqrt(2.0))) / 2.0 for x in (-2.0, 2.0))
+    out.uniform_(2 * cdf_lo - 1, 2 * cdf_hi - 1, generator=generator).erfinv_().mul_(math.sqrt(2.0))
+    return out.clamp_(-2.0, 2.0)
+
+
 def variance_scaling(scale: float, mode: str, distribution: str) -> Initializer:
     """``jax.nn.initializers.variance_scaling(scale, mode, distribution)`` at
     its default axes, for the modes (``fan_in``, ``fan_avg``) and
@@ -61,8 +76,7 @@ def variance_scaling(scale: float, mode: str, distribution: str) -> Initializer:
         std = math.sqrt(scale / (fan_in if mode == "fan_in" else (fan_in + fan_out) / 2))
         out = _empty(shape, generator)
         if distribution == "truncated_normal":
-            torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            return out.mul_(std / TRUNCATED_NORMAL_STD)
+            return truncated_normal_(out, generator).mul_(std / TRUNCATED_NORMAL_STD)
         return out.uniform_(-1.0, 1.0, generator=generator).mul_(math.sqrt(3.0) * std)
 
     return init

@@ -27,6 +27,8 @@ and measures:
 Every model runs on ``device`` (the card unless ``"cpu"``); the trained
 pair is evaluated in f32. ``scale="ci"`` is the small configuration,
 ``scale="chip"`` the fuller one; both are the JAX package's.
+``run_gan_quality`` runs the GAN half alone at a scale dict of the caller's
+(the port's learning check: ``chip_smoke.py:gan_learning_phase``).
 
     python -m speech_resynth_torch.pipeline.e2e_quality <workdir> [ci|chip] [--device cpu]
 """
@@ -219,12 +221,54 @@ def _untrained_cfm(config, seed: int, device: DeviceLike = None):
     return build_model(config, None, FLOAT32, seed, device).eval().requires_grad_(False)
 
 
+def _corpora(tmp: Path, p) -> tuple:
+    """The training corpus (seed 0) and the held-out one (seed 99) of a scale."""
+    train_corpus = make_formant_corpus(tmp / "train_corpus", n_utts=p["n_train"], n_units=N_UNITS, seed=0)
+    eval_corpus = make_formant_corpus(tmp / "eval_corpus", n_utts=p["n_eval"], n_units=N_UNITS, seed=99)
+    return train_corpus, eval_corpus
+
+
+def _gan_quality(tmp: Path, p, train_corpus, eval_names, spec_dir, device: torch.device) -> Dict:
+    """Train the GAN of scale ``p`` (``_gan_config``) and measure it against
+    the generator the trainer started from."""
+    from ..core.precision import FLOAT32
+    from ..models.composite import init_random_weights, load_vocoder
+    from ..models.hifigan import HifiGanGenerator
+    from .train_loops import _hifigan_config, train_hifigan
+
+    results: Dict = {}
+    gan_cfg = _gan_config(tmp, train_corpus, p)
+    untrained_gen = HifiGanGenerator(_hifigan_config(gan_cfg.hifigan), FLOAT32)
+    init_random_weights(untrained_gen, torch.Generator().manual_seed(gan_cfg.hifigan.seed))
+    untrained_gen = untrained_gen.to(device).eval().requires_grad_(False)
+    results["gan_mel_l1_untrained"], results["gan_peak_untrained"] = _eval_vocoder(untrained_gen, eval_names, spec_dir, device)
+
+    results["gan_steps"] = train_hifigan(gan_cfg, device)["step"]
+
+    trained_gen = load_vocoder(Path(gan_cfg.hifigan.path), FLOAT32).to(device).eval().requires_grad_(False)
+    results["gan_mel_l1_trained"], results["gan_peak_trained"] = _eval_vocoder(trained_gen, eval_names, spec_dir, device)
+    results["gan_weight_change"] = _weight_change(untrained_gen, trained_gen)
+    return results
+
+
+def run_gan_quality(workdir: str | Path, p: dict, device: DeviceLike = None) -> Dict:
+    """The quality run's GAN half alone at the scale dict ``p`` (the keys of
+    ``SCALES`` that the GAN reads: n_train, n_eval, gan_channels,
+    gan_epochs, gan_batch, frames_per_seg), on its own corpora: the
+    ``gan_*`` results of ``run_e2e_quality``, the steps taken among them."""
+    device = resolve_device(device)
+    tmp = Path(workdir)
+    tmp.mkdir(parents=True, exist_ok=True)
+    train_corpus, eval_corpus = _corpora(tmp, p)
+    eval_names = sorted(json.loads(Path(eval_corpus["train_file"]).read_text()))
+    return _gan_quality(tmp, p, train_corpus, eval_names, eval_corpus["spec_dir"], device)
+
+
 def run_e2e_quality(workdir: str | Path, scale: str = "ci", device: DeviceLike = None) -> Dict:
     from ..core.precision import FLOAT32
-    from ..models.composite import ConditionalFlowMatchingWithHifiGan, init_random_weights, load_vocoder
-    from ..models.hifigan import HifiGanGenerator
+    from ..models.composite import ConditionalFlowMatchingWithHifiGan
     from .speechlm import write_scores
-    from .train_loops import _hifigan_config, _restore_lm, train_flow_matching, train_hifigan, train_speechlm
+    from .train_loops import _restore_lm, train_flow_matching, train_speechlm
 
     device = resolve_device(device)
     p = SCALES[scale]
@@ -232,26 +276,14 @@ def run_e2e_quality(workdir: str | Path, scale: str = "ci", device: DeviceLike =
     tmp.mkdir(parents=True, exist_ok=True)
     results: Dict = {"scale": scale}
 
-    train_corpus = make_formant_corpus(tmp / "train_corpus", n_utts=p["n_train"], n_units=N_UNITS, seed=0)
-    eval_corpus = make_formant_corpus(tmp / "eval_corpus", n_utts=p["n_eval"], n_units=N_UNITS, seed=99)
+    train_corpus, eval_corpus = _corpora(tmp, p)
     eval_ds = json.loads(Path(eval_corpus["train_file"]).read_text())
     eval_names = sorted(eval_ds.keys())
     spec_dir = eval_corpus["spec_dir"]
 
     # ---- HiFi-GAN: the generator the trainer starts from, then the trained export
-    gan_cfg = _gan_config(tmp, train_corpus, p)
-    voc_config = _hifigan_config(gan_cfg.hifigan)
-    untrained_gen = HifiGanGenerator(voc_config, FLOAT32)
-    init_random_weights(untrained_gen, torch.Generator().manual_seed(gan_cfg.hifigan.seed))
-    untrained_gen = untrained_gen.to(device).eval().requires_grad_(False)
-    results["gan_mel_l1_untrained"], results["gan_peak_untrained"] = _eval_vocoder(untrained_gen, eval_names, spec_dir, device)
-
-    train_hifigan(gan_cfg, device)
-
-    voc_dir = Path(gan_cfg.hifigan.path)
-    trained_gen = load_vocoder(voc_dir, FLOAT32).to(device).eval().requires_grad_(False)
-    results["gan_mel_l1_trained"], results["gan_peak_trained"] = _eval_vocoder(trained_gen, eval_names, spec_dir, device)
-    results["gan_weight_change"] = _weight_change(untrained_gen, trained_gen)
+    results.update(_gan_quality(tmp, p, train_corpus, eval_names, spec_dir, device))
+    voc_dir = Path(_gan_config(tmp, train_corpus, p).hifigan.path)
 
     # ---- CFM: the trained pair through load_pretrained; the start of training beside it
     _register_tiny_encoder()

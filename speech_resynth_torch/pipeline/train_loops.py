@@ -288,16 +288,13 @@ def _hifigan_config(hg) -> HifiGanConfig:
     )
 
 
-def train_hifigan(config, device: DeviceLike = None) -> dict:
-    """Train the HiFi-GAN generator and discriminators from ``config.hifigan``
-    / ``config.dataset`` on ``device`` (the card unless ``"cpu"``); returns
-    the final step and its metrics."""
-    from ..train.hifigan import HifiGanTrainerConfig, make_gan_trainer
+def hifigan_training_setup(config, batch_size: int):
+    """(generator config, ``MelDataset`` of the training crops, trainer
+    config) of ``config.hifigan`` / ``config.dataset`` at ``batch_size`` rows
+    a process: what ``train_hifigan`` steps on."""
+    from ..train.hifigan import HifiGanTrainerConfig
 
-    device = resolve_device(device)
-    distributed_init(device)
     hg = config.hifigan
-    model_config = _hifigan_config(hg)
     train_set = MelDataset(
         config.dataset.wav_dir,
         config.dataset.spectrogram_dir,
@@ -308,9 +305,6 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
         True,
         config.dataset.ext_audio,
     )
-    mesh, batch_size = dp_mesh_for_batch(int(hg.batch_size))
-    index, count = data_coordinates(mesh)
-    steps_per_epoch = max(len(train_set) // batch_size, 1)
     trainer_config = HifiGanTrainerConfig(
         batch_size=batch_size,
         segment_size=hg.segment_size,
@@ -322,16 +316,31 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
         seed=hg.seed,
         n_fft=hg.n_fft,
         hop_size=hg.hop_size,
-        steps_per_epoch=steps_per_epoch,
+        steps_per_epoch=max(len(train_set) // batch_size, 1),
         stdout_interval=hg.stdout_interval,
         summary_interval=hg.summary_interval,
         checkpoint_interval=hg.checkpoint_interval,
         validation_interval=hg.validation_interval,
     )
+    return _hifigan_config(hg), train_set, trainer_config
+
+
+def train_hifigan(config, device: DeviceLike = None) -> dict:
+    """Train the HiFi-GAN generator and discriminators from ``config.hifigan``
+    / ``config.dataset`` on ``device`` (the card unless ``"cpu"``); returns
+    the final step and its metrics."""
+    from ..train.hifigan import make_gan_trainer
+
+    device = resolve_device(device)
+    distributed_init(device)
+    mesh, batch_size = dp_mesh_for_batch(int(config.hifigan.batch_size))
+    index, count = data_coordinates(mesh)
+    model_config, train_set, trainer_config = hifigan_training_setup(config, batch_size)
+    steps_per_epoch = trainer_config.steps_per_epoch
     (gen, _, _), state, step_fn = make_gan_trainer(model_config, trainer_config, device=device,
                                                    data_group=mesh.group(DATA_AXIS) if count > 1 else None)
 
-    path = Path(hg.path)
+    path = Path(config.hifigan.path)
     rank0 = process_index() == 0
     writer = MetricsWriter(path / "logs", enabled=rank0)
     timer = StepTimer()

@@ -17,7 +17,9 @@ built in this process), and extracts the evidence:
                    equal an uninterrupted control run's byte for byte
   resume-check-at  the same check from the last checkpoint of an existing run
   supervise        re-launch ``run`` after every exit until the step target
-                   is reached, so a long run outlives crashes
+                   is reached, so a long run outlives crashes; exit non-zero
+                   after ``--max-stalls`` (3) failed generations in a row
+                   without step progress
 
 The checks' trainers run in processes of their own under
 ``torch.use_deterministic_algorithms(True)`` with CUBLAS_WORKSPACE_CONFIG
@@ -277,12 +279,20 @@ def cmd_resume_check(args):
         raise SystemExit("resumed run diverged from uninterrupted control")
 
 
+# generations in a row that may exit non-zero without advancing the
+# checkpointed step before ``supervise`` gives up: a deterministic failure (a
+# corrupt checkpoint, a bad flag) fails the same way on every relaunch
+SUPERVISE_MAX_STALLS = 3
+
+
 def cmd_supervise(args):
     """Auto-restarting supervisor for multi-hour runs: re-launch ``run`` (which
     resumes from the last checkpoint) every time the trainer exits (a
     crash, a kill, or a clean finish) until the step target is reached.
     Checkpoint cadence bounds the lost work per relaunch to <=
-    ckpt_interval steps."""
+    ckpt_interval steps. After ``--max-stalls`` generations in a row that
+    exit non-zero without advancing the checkpointed step it exits non-zero
+    itself (the JAX script relaunches forever)."""
     _device(args)
     workdir = Path(args.workdir)
     base = [sys.executable, "-m", MODULE, "run", str(workdir), "--batch", str(args.batch),
@@ -297,14 +307,18 @@ def cmd_supervise(args):
         steps = [int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit()]
         return max(steps, default=0)
 
-    gen = 0
+    gen = stalls = 0
     while last_step() < args.steps:
         gen += 1
-        print(f"[supervise] generation {gen}: resuming from step {last_step()}", flush=True)
+        start = last_step()
+        print(f"[supervise] generation {gen}: resuming from step {start}", flush=True)
         rc = subprocess.run(base).returncode
         print(f"[supervise] generation {gen} exited rc={rc} at step {last_step()}", flush=True)
         if rc == 0:
             break
+        stalls = stalls + 1 if last_step() <= start else 0
+        if stalls >= args.max_stalls:
+            raise SystemExit(f"[supervise] {stalls} generations in a row exited non-zero at step {start}: giving up")
         time.sleep(5.0)
     print(f"[supervise] done at step {last_step()} after {gen} generation(s)", flush=True)
 
@@ -371,6 +385,9 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--extend-steps", type=int, default=128,
                        help="resume-check-at: continuation length past the boundary checkpoint")
         s.add_argument("--device", default="cuda", help="cuda (the card, default) or cpu; report reads files only")
+        if name == "supervise":
+            s.add_argument("--max-stalls", type=int, default=SUPERVISE_MAX_STALLS,
+                           help="exit non-zero after this many generations in a row that fail without step progress")
     return parser
 
 

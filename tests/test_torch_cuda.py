@@ -20,6 +20,13 @@ kernel's id gives up stays within SCORE_TOL * (|best| + 1): 3xTF32 keeps f32
 accuracy, where plain TF32 (10 mantissa bits) can give up more.
 """
 
+import contextlib
+import copy
+import itertools
+import math
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +49,46 @@ def card():
 ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 MRF_TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
 SCORE_TOL = 1e-5
+# gan_steps_card_vs_cpu's limits on relative differences, synced trainer against
+# the reference, each limit between what sound runs read (an H100 against its
+# host's CPU, 16 steps, twice; the CPU on 4 threads once more) and what faults
+# planted in the second side read (``planted_gan_fault``, CPU against CPU at the
+# module widths, step 2):
+# - the three losses, every step: sound at most 2.0e-6; a dropped feature loss
+#   0.114, a flipped adversarial sign 0.080, the mel weight x3 1.69, a dropped
+#   real term of the discriminators' loss 1.00.
+# - step 1, per tensor, both sides from the draw: gradients 6.3e-4, updates 1.7e-2
+#   (Adam multiplies a gradient's last bits by up to lr / eps where |g| < eps),
+#   held to 16x and 12x that.
+# - every step, per module (gen, mpd, msd), its tensors as one vector (one tensor
+#   alone is no measure after step 1: a resblock bias whose leaky ReLUs sit at
+#   their kink reads up to 0.8 from one device's rounding): gradients, sound at
+#   most 9.4e-5 (2.5e-4 with the CPU on 4 threads), faults 1.4e-2 (feature loss
+#   dropped), 2.3e-2 (adversarial sign), 1.95 (mel x3), 1.00 (real term dropped);
+#   the updates against the CPU optimizer's replay of the same state and gradients
+#   (``update_replayed``), sound at most 1.3e-6, both updates x3 2.0. The updates
+#   against the reference's (``update``) are recorded, not held after step 1: from
+#   the same state they read up to 0.47 (gen) and 0.099 (mpd, msd) in sound runs,
+#   Adam's amplification of the gradients' last bits, and 2.5e-3-0.57 under the
+#   faults above, so no limit tells the two apart.
+GAN_LOSS_TOL = 1e-4
+GAN_STEP1_TOL = {"grad": 1e-2, "update": 0.2}
+GAN_MODULE_TOL = {"grad": 2e-3, "update_replayed": 1e-4}
+# The free trajectories' final weight changes, card against CPU, each moving with
+# its rounding over 16 steps: 1.2e-5 to 16.7% in sound runs (the CPU reference
+# itself ends at 1.775e-2 on one host's CPU, 2.129e-2 on another's), 6.4x (bf16)
+# and 16x (f32) for the two draws of one seed that torch versions once gave.
+GAN_WEIGHT_TOL = 0.3
+# The CPU reference's intra-op threads: its reductions, and so its trajectory,
+# follow the thread count (16 steps end 1.4% apart between 1 and 8 threads on one
+# CPU), so the count is pinned; the CPU's model still moves it (above).
+GAN_REFERENCE_THREADS = 8
+# The one-step checks' relative differences of each tensor (``_compare_steps``).
+# Measured on an H100 against its host's CPU (f32, TF32 off): gradients at most
+# 9.7e-6 (GAN), 1.4e-6 (LM), 7.2e-7 (CFM); updates 7.6e-4 (LM), 3.3e-4 (GAN),
+# 1.3e-4 (CFM): Adam's first update is lr * g / (|g| + eps), so where |g| is
+# near eps a gradient's last bits move its update by up to lr / eps times them.
+STEP_TOL = {"grad_rel": 1e-4, "update_rel": 5e-3}
 
 
 def _score_given_up(x, centers, got, want):
@@ -663,19 +710,27 @@ def _recording(opt):
 
 
 def _compare_steps(results, metric_keys) -> dict:
-    """Card against CPU after one f32 step: metrics rtol 1e-4; parameters to
-    1e-6 where the CPU gradient exceeds 1e-3 * max|g| of its tensor (Adam's
-    first update is about lr * sign(g), so a gradient near 0 may flip; see
-    tests/test_torch_train_cfm.py)."""
-    (cpu_m, cpu_p, cpu_g), (card_m, card_p, _) = results["cpu"], results["cuda"]
+    """Card against CPU after one f32 step from the same parameters: metrics
+    rtol 1e-4; parameters to 1e-6 where the CPU gradient exceeds 1e-3 *
+    max|g| of its tensor (Adam's first update is about lr * sign(g), so a
+    gradient near 0 may flip; see tests/test_torch_train_cfm.py); and, per
+    tensor and over every element, the card's gradient (as its optimizer was
+    given it) and its update (p_after - p_before) relative to the CPU's norm,
+    ||x_card - x_cpu|| / ||x_cpu||, within STEP_TOL."""
+    (cpu_m, cpu_drawn, cpu_p, cpu_g), (card_m, card_drawn, card_p, card_g) = results["cpu"], results["cuda"]
+    assert all(torch.equal(a, b) for a, b in zip(cpu_drawn, card_drawn))
     rel = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-12) for k in metric_keys}
     err = 0.0
     for a, b, g in zip(card_p, cpu_p, cpu_g):
         live = g.abs() > 1e-3 * g.abs().max()
         err = max(err, float((a[live] - b[live]).abs().max()) if live.any() else 0.0)
+    grad_rel = max(_rel(a, b) for a, b in zip(card_g, cpu_g))
+    update_rel = max(_rel(a - d, b - d) for a, b, d in zip(card_p, cpu_p, cpu_drawn))
     record = {"metrics_card": card_m, "metrics_cpu": cpu_m, "metrics_rel_diff": rel, "param_max_abs_diff": err,
-              "tol": {"metrics_rel": 1e-4, "params_abs": 1e-6}}
+              "grad_max_rel_diff": grad_rel, "update_max_rel_diff": update_rel,
+              "tol": {"metrics_rel": 1e-4, "params_abs": 1e-6, **STEP_TOL}}
     assert all(r <= 1e-4 for r in rel.values()) and err <= 1e-6, record
+    assert grad_rel <= STEP_TOL["grad_rel"] and update_rel <= STEP_TOL["update_rel"], record
     return record
 
 
@@ -701,11 +756,12 @@ def cfm_step_card_vs_cpu(remat: bool) -> dict:
         model, state, step = make_trainer(cfg, CFMTrainerConfig(warmup_steps=2), 10, table, FLOAT32, device)
         grads = _recording(state.optimizers["model"])
         batch = {"input_ids": torch.from_numpy(ids).to(device), "spectrogram_labels": torch.from_numpy(mels).to(device)}
+        drawn = [p.detach().cpu().clone() for p in state.optimizers["model"].params]
         before = TA.flash_attention.launches
         state, metrics = step(state, batch, 0, x0=torch.from_numpy(x0).to(device), times=torch.from_numpy(times).to(device))
         launches[device] = TA.flash_attention.launches - before
         params = [p.detach().cpu() for p in state.optimizers["model"].params]
-        results[device] = ({k: float(v) for k, v in metrics.items()}, params, grads)
+        results[device] = ({k: float(v) for k, v in metrics.items()}, drawn, params, grads)
     assert launches == {"cpu": 0, "cuda": 2 * (2 if remat else 1)}, launches
     return {"remat": remat, "k1_launches": launches["cuda"], **_compare_steps(results, ("loss", "grad_norm"))}
 
@@ -733,11 +789,270 @@ def gan_step_card_vs_cpu() -> dict:
     for device in ("cpu", "cuda"):
         _, state, step = make_gan_trainer(cfg, tcfg, FLOAT32, device)
         grads = {k: _recording(o) for k, o in state.optimizers.items()}
+        drawn = [p.detach().cpu().clone() for k in ("gen", "disc") for p in state.optimizers[k].params]
         state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
         params = [p.detach().cpu() for k in ("gen", "disc") for p in state.optimizers[k].params]
-        results[device] = ({k: float(v) for k, v in metrics.items()}, params, grads["gen"] + grads["disc"])
+        results[device] = ({k: float(v) for k, v in metrics.items()}, drawn, params, grads["gen"] + grads["disc"])
     assert (TM.mrf_branch_kernel.launches, TM.mrf_stage_kernel.launches) == counts
     return _compare_steps(results, ("loss_disc", "loss_gen", "mel_error"))
+
+
+def _norms(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(||a - b||, ||b||), in f64 where an f32 norm would underflow."""
+    ref, diff = float(torch.linalg.vector_norm(b)), float(torch.linalg.vector_norm(a - b))
+    if not 1e-30 < ref < 1e30:
+        a, b = a.double(), b.double()
+        ref, diff = float(b.norm()), float((a - b).norm())
+    return diff, ref
+
+
+def _ratio(diff: float, ref: float) -> float:
+    return diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||: 0 when both are 0, infinite when only b is."""
+    return _ratio(*_norms(a, b))
+
+
+def _to_cpu(tree):
+    """A copy of a state dict's tree with its tensors on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+GAN_MODULES = ("gen", "mpd", "msd")  # gan_steps_card_vs_cpu's modules: its tensor names' first part
+
+
+def gan_steps_card_vs_cpu(steps: int = 16, devices=("cpu", "cuda")) -> dict:
+    """Scale ci's GAN training on two devices: the quality run's generator
+    (``e2e_quality._gan_config`` at ``SCALES["ci"]``: 32 channels, rates 5,
+    4, 4, 2, 2), the discriminators at their module widths, f32 (TF32 off),
+    the CPU on GAN_REFERENCE_THREADS threads, every trainer from the same CPU
+    draw, each step on the batch of 2 crops of 8 frames that
+    ``train_hifigan`` takes from the formant corpus (seed 0) at that step.
+    Three trainers: the reference on ``devices[0]``, and on ``devices[1]``
+    one that follows its own trajectory ("free") and one that takes the
+    reference's state before each step and, between the step's two halves,
+    the reference's updated discriminators and MSD's ``u`` ("synced"). So
+    each half of each step runs from the same state on both devices: Adam,
+    at the draw's gradients (far below its eps), multiplies a difference of
+    the discriminators' gradients by up to lr / eps = 2e4 in their update,
+    and the generator's gradient through discriminators that see a
+    near-silent output is set by the signs of their biases.
+
+    At every step, against the reference's: the synced trainer's three
+    losses (``loss_rel``), its gradients as its optimizers were given them
+    (``grad``), its updates (``update``: the discriminators' after their
+    half, the generator's after the step), and its updates against those the
+    reference's optimizers make on the CPU from its state and gradients
+    (``update_replayed``), each as ||x_b - x_a|| / ||x_a||, no element left
+    out: per tensor (``*_rel_worst``: the worst and its name) and per
+    module, its tensors as one vector (``*_rel_module``).
+    ``first_divergence``: the first (step, where, kind, rel) past
+    GAN_LOSS_TOL, GAN_STEP1_TOL per tensor at step 1, or GAN_MODULE_TOL per
+    module; None when none is. The free trainer gives the trajectory's
+    measures: the three losses and the running ``gan_weight_change``
+    (``e2e_quality._weight_change`` against the draw) of each device, and
+    its generator's per-step differences (``free_*``)."""
+    from speech_resynth_torch.core.precision import FLOAT32
+    from speech_resynth_torch.pipeline import e2e_quality as E
+    from speech_resynth_torch.pipeline.prefetch import to_device
+    from speech_resynth_torch.pipeline.synthetic import make_formant_corpus
+    from speech_resynth_torch.pipeline.train_loops import GAN_KEYS, hifigan_training_setup
+    from speech_resynth_torch.train.hifigan import make_gan_trainer
+
+    p = E.SCALES["ci"]
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, torch.get_num_threads()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(GAN_REFERENCE_THREADS)
+    try:
+        with tempfile.TemporaryDirectory(prefix="gan_steps_") as tmp:
+            corpus = make_formant_corpus(Path(tmp) / "train_corpus", n_utts=p["n_train"], n_units=E.N_UNITS, seed=0)
+            model_config, train_set, tcfg = hifigan_training_setup(E._gan_config(Path(tmp), corpus, p), p["gan_batch"])
+            epochs = (train_set.batches(tcfg.batch_size, seed=tcfg.seed, epoch=e) for e in itertools.count())
+            batches = list(itertools.islice(itertools.chain.from_iterable(epochs), steps))
+        sides = {}
+        for role, device in (("reference", devices[0]), ("free", devices[1]), ("synced", devices[1])):
+            (gen, mpd, msd), state, step = make_gan_trainer(model_config, tcfg, FLOAT32, device)
+            names = [f"gen.{n}" for n, _ in gen.named_parameters()]
+            names += [f"{m}.{n}" for m, mod in (("mpd", mpd), ("msd", msd)) for n, _ in mod.named_parameters()]
+            gen_opt, disc_opt = state.optimizers["gen"], state.optimizers["disc"]
+            assert len(names) == len(gen_opt.params) + len(disc_opt.params)
+            side = {"device": torch.device(device), "gen": gen, "msd": msd, "state": state, "step": step,
+                    "grads": {k: _recording(o) for k, o in state.optimizers.items()}}
+            side["follow"] = sides.get("reference") if role == "synced" else None
+
+            def disc_step(g, side=side, opt=disc_opt, real=disc_opt.step):
+                applied = real(g)
+                side["disc_after"] = [q.detach().to("cpu", copy=True) for q in opt.params]
+                side["u"] = {n: b.detach().cpu().clone() for n, b in side["msd"].named_buffers()}
+                ref = side["follow"]
+                if ref is not None:  # the generator's half runs through the reference's discriminators
+                    with torch.no_grad():
+                        for q, r in zip(opt.params, ref["disc_after"]):
+                            q.copy_(r)
+                        for n, b in side["msd"].named_buffers():
+                            b.copy_(ref["u"][n])
+                return applied
+
+            disc_opt.step = disc_step
+            sides[role] = side
+        params = {r: [*s_["state"].optimizers["gen"].params, *s_["state"].optimizers["disc"].params] for r, s_ in sides.items()}
+        draw = copy.deepcopy(sides["reference"]["gen"]).cpu()
+        assert all(torch.equal(a.cpu(), b.cpu()) for ps in params.values() for a, b in zip(params["reference"], ps))
+
+        def take_step(role, batch):
+            side = sides[role]
+            before = [q.detach().to("cpu", copy=True) for q in params[role]]
+            moments = {k: _to_cpu(o.state_dict()) for k, o in side["state"].optimizers.items()} if role == "synced" else None
+            side["state"], metrics = side["step"](side["state"], to_device(batch, GAN_KEYS, side["device"]))
+            grads = side["grads"]["gen"] + side["grads"]["disc"]
+            for g in side["grads"].values():
+                g.clear()
+            after = [q.detach().cpu() for q in side["state"].optimizers["gen"].params] + side["disc_after"]
+            return {k: float(v) for k, v in metrics.items()}, grads, [a - b for a, b in zip(after, before)], before, moments
+
+        def replayed(taken) -> list:
+            """The updates the reference's optimizers make on the CPU from the
+            state and the gradients of a step ``taken`` on the other device."""
+            _, grads, _, before, moments = taken
+            updates, at = [], 0
+            for k in ("gen", "disc"):
+                opt = sides["reference"]["state"].optimizers[k]
+                n = len(opt.params)
+                ps = [torch.nn.Parameter(b.clone()) for b in before[at : at + n]]
+                replica = type(opt)(ps, opt.schedule, *opt.adamw.defaults["betas"], opt.adamw.defaults["eps"], opt.max_norm,
+                                    opt.adamw.defaults["weight_decay"])
+                replica.load_state_dict(moments[k])
+                replica.step(grads[at : at + n])
+                updates += [q.detach() - b for q, b in zip(ps, before[at : at + n])]
+                at += n
+            return updates
+
+        records, first, n_gen = [], None, len(sides["reference"]["state"].optimizers["gen"].params)
+        for i, batch in enumerate(batches):
+            ref_state = sides["reference"]["state"].state_dict()
+            if devices[0] == devices[1]:  # a load onto the same device would alias the moments
+                ref_state["optimizers"] = copy.deepcopy(ref_state["optimizers"])
+            sides["synced"]["state"].load_state_dict(ref_state)
+            ref, synced, free = (take_step(r, batch) for r in ("reference", "synced", "free"))
+            loss_rel = {k: abs(synced[0][k] - v) / max(abs(v), 1e-30) for k, v in ref[0].items()}
+            record = {"step": i + 1, "losses": [ref[0], free[0]], "loss_rel": loss_rel}
+            over = [(k, r) for k, r in loss_rel.items() if r > GAN_LOSS_TOL]
+            if first is None and over:
+                first = {"step": i + 1, "where": over[0][0], "kind": "loss", "rel": over[0][1]}
+            for prefix, other, modules in (("", synced, GAN_MODULES), ("free_", free, ("gen",))):
+                kinds = [("grad", ref[1], other[1]), ("update", ref[2], other[2])]
+                if not prefix:  # the card's optimizer against the CPU's on the card's gradients
+                    kinds.append(("update_replayed", replayed(synced), synced[2]))
+                for kind, xs, ys in kinds:
+                    norms = [_norms(y, x) for x, y in zip(xs[: n_gen if prefix else len(names)], ys)]
+                    values = [_ratio(*dr) for dr in norms]
+                    worst = max(range(len(values)), key=values.__getitem__)
+                    record[f"{prefix}{kind}_rel_worst"] = [values[worst], names[worst]]
+                    # a module's tensors as one vector: its squared norms summed
+                    by_module = {m: _ratio(*(math.sqrt(sum(dr[k] ** 2 for dr, n in zip(norms, names) if n.startswith(m + ".")))
+                                             for k in (0, 1))) for m in modules}
+                    record[f"{prefix}{kind}_rel_module"] = by_module
+                    if prefix or first is not None:
+                        continue
+                    step1_tol = GAN_STEP1_TOL.get(kind, math.inf) if i == 0 else math.inf
+                    over = [(names[j], v) for j, v in enumerate(values) if v > step1_tol]
+                    over += [(m, r) for m, r in by_module.items() if r > GAN_MODULE_TOL.get(kind, math.inf)]
+                    if over:
+                        first = {"step": i + 1, "where": over[0][0], "kind": kind, "rel": over[0][1]}
+            record["gan_weight_change"] = [E._weight_change(draw, sides[r]["gen"]) for r in ("reference", "free")]
+            records.append(record)
+        return {"devices": list(devices), "steps": steps, "threads": GAN_REFERENCE_THREADS,
+                "tol": {"loss": GAN_LOSS_TOL, "step1_per_tensor": GAN_STEP1_TOL, "per_module": GAN_MODULE_TOL}, "records": records,
+                "first_divergence": first, "gan_weight_change": records[-1]["gan_weight_change"]}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, threads = saved
+        torch.set_num_threads(threads)
+
+
+# Faults that gan_steps_card_vs_cpu must see, planted in its second device's
+# trainers: in the generator's loss a term's weight off by 3, a dropped term, a
+# flipped sign; in the discriminators' loss a dropped term; both optimizers'
+# updates x3
+GAN_FAULTS = ("mel_loss_weight_x3", "no_feature_loss", "adversarial_sign", "no_disc_real_term", "adam_update_x3")
+
+
+@contextlib.contextmanager
+def planted_gan_fault(fault: str, from_step: int = 2):
+    """While open, every trainer ``make_gan_trainer`` builds after its first
+    (``gan_steps_card_vs_cpu``'s free and synced ones) computes its losses
+    with ``fault`` (one of GAN_FAULTS) from step ``from_step`` on."""
+    import dataclasses
+
+    import speech_resynth_torch.train.hifigan as TTH
+
+    real_make, real_feature, real_adversarial, real_disc = (TTH.make_gan_trainer, TTH.feature_loss, TTH.generator_loss,
+                                                           TTH.discriminator_loss)
+    built, active = [], [False]
+
+    def make(config, trainer, *args, **kwargs):
+        built.append(config)
+        if len(built) == 1:
+            return real_make(config, trainer, *args, **kwargs)
+        trainer = dataclasses.replace(trainer)
+        modules, state, step = real_make(config, trainer, *args, **kwargs)
+        if fault == "adam_update_x3":
+            for opt in state.optimizers.values():
+
+                def tripled(grads, opt=opt, real=opt.step):
+                    before = [q.detach().clone() for q in opt.params] if active[0] else None
+                    applied = real(grads)
+                    if before is not None:
+                        with torch.no_grad():
+                            for q, b in zip(opt.params, before):
+                                q.add_(2 * (q - b))
+                    return applied
+
+                opt.step = tripled
+
+        def faulty(state, batch, weight=trainer.mel_loss_weight):
+            active[0] = state.step + 1 >= from_step
+            if fault == "mel_loss_weight_x3":
+                trainer.mel_loss_weight = 3 * weight if active[0] else weight
+            try:
+                return step(state, batch)
+            finally:
+                active[0] = False
+
+        return modules, state, faulty
+
+    TTH.make_gan_trainer = make
+    if fault == "no_feature_loss":
+        TTH.feature_loss = lambda real, fake: 0 * real_feature(real, fake) if active[0] else real_feature(real, fake)
+    if fault == "adversarial_sign":
+        TTH.generator_loss = lambda outputs: -real_adversarial(outputs) if active[0] else real_adversarial(outputs)
+    if fault == "no_disc_real_term":  # D(y) read as 1: (1 - D(y))^2 is 0
+        TTH.discriminator_loss = lambda real, fake: real_disc([torch.ones_like(r) for r in real] if active[0] else real, fake)
+    try:
+        yield
+    finally:
+        TTH.make_gan_trainer, TTH.feature_loss, TTH.generator_loss, TTH.discriminator_loss = (real_make, real_feature,
+                                                                                              real_adversarial, real_disc)
+
+
+@pytest.mark.cuda
+def test_gan_steps_card_match_cpu_over_scale_ci_epoch(card):
+    """The 16 steps of scale ci's GAN epoch (``gan_steps_card_vs_cpu``): from
+    the CPU's state, at step 1 every tensor's gradient and update within
+    GAN_STEP1_TOL of the CPU's and at every step each module's within
+    GAN_MODULE_TOL; the card's own trajectory's final ``gan_weight_change``
+    within GAN_WEIGHT_TOL of the CPU's."""
+    r = gan_steps_card_vs_cpu(16)
+    assert r["first_divergence"] is None, r["first_divergence"]
+    cpu, on_card = r["gan_weight_change"]
+    assert abs(on_card - cpu) <= GAN_WEIGHT_TOL * cpu, r["gan_weight_change"]
 
 
 @pytest.mark.cuda
@@ -773,11 +1088,12 @@ def lm_step_card_vs_cpu(attn_implementation: str, remat: bool = False) -> dict:
     for device in ("cpu", "cuda"):
         _, state, step = make_speechlm_trainer(cfg, tcfg, None, 10, FLOAT32, device=device)
         grads = _recording(state.optimizers["model"])
+        drawn = [p.detach().cpu().clone() for p in state.optimizers["model"].params]
         before = TA.flash_attention.launches
         state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
         launches[device] = TA.flash_attention.launches - before
         params = [p.detach().cpu() for p in state.optimizers["model"].params]
-        results[device] = ({k: float(v) for k, v in metrics.items()}, params, grads)
+        results[device] = ({k: float(v) for k, v in metrics.items()}, drawn, params, grads)
     want = 0 if attn_implementation == "xla" else 2 * (2 if remat else 1)
     assert launches == {"cpu": 0, "cuda": want}, launches
     return {"attn_implementation": attn_implementation, "remat": remat, "k1_launches": launches["cuda"],

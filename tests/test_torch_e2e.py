@@ -297,3 +297,63 @@ def test_entry_refuses_to_fall_back_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         graft_entry.entry()
+
+
+# The port's GAN learning check at a scale of its own: scale ci's corpora, batch
+# and crops with scale chip's 128-channel generator (at 32 or 64 channels the
+# JAX draw's generator stays at the mel-L1 of silence for 1 200 steps on the
+# card), the discriminators narrowed; 5 epochs of 16 steps.
+GAN_LEARNING = dict(torch_e2e.SCALES["ci"], gan_channels=128, gan_epochs=5)
+
+
+def test_gan_leaves_silence_at_the_ports_learning_scale(tmp_path, narrow_discriminators):
+    """The quality run's GAN (seed-0 train and seed-99 held-out corpora, GAN
+    seed 1234) at ``GAN_LEARNING``: the trained generator's held-out mel-L1
+    is at most 0.7 x the draw's, the form of the CFM gate."""
+    r = torch_e2e.run_gan_quality(tmp_path, GAN_LEARNING, device="cpu")
+    assert r["gan_steps"] == 80 and np.isfinite(r["gan_mel_l1_trained"]), r
+    assert r["gan_mel_l1_trained"] <= 0.7 * r["gan_mel_l1_untrained"], r
+
+
+def test_gan_steps_bookkeeping_on_two_cpu_runs(narrow_discriminators, monkeypatch):
+    """``tests/test_torch_cuda.py:gan_steps_card_vs_cpu`` with the CPU on
+    both sides: every gradient and update difference 0 at every step, per
+    tensor and per module (the synced trainer loaded from the reference's
+    state, the free one on its own), the first-divergence report empty, the
+    weight changes equal and above 0."""
+    import test_torch_cuda as TCU
+
+    monkeypatch.setattr(TCU, "GAN_REFERENCE_THREADS", 1)
+    r = TCU.gan_steps_card_vs_cpu(2, devices=("cpu", "cpu"))
+    assert r["first_divergence"] is None and len(r["records"]) == 2
+    for record in r["records"]:
+        for prefix, kinds in (("", ("grad", "update", "update_replayed")), ("free_", ("grad", "update"))):
+            for kind in kinds:
+                assert record[f"{prefix}{kind}_rel_worst"][0] == 0.0
+                assert set(record[f"{prefix}{kind}_rel_module"].values()) == {0.0}
+        assert record["losses"][0] == record["losses"][1] and set(record["loss_rel"].values()) == {0.0}
+        cpu, other = record["gan_weight_change"]
+        assert cpu == other > 0
+
+
+@pytest.mark.parametrize("fault", ["mel_loss_weight_x3", "no_feature_loss", "adversarial_sign", "no_disc_real_term",
+                                   "adam_update_x3"])
+def test_gan_steps_check_sees_a_fault_planted_at_step_2(narrow_discriminators, monkeypatch, fault):
+    """``gan_steps_card_vs_cpu`` on the CPU against the CPU with ``fault``
+    (``tests/test_torch_cuda.py:planted_gan_fault``) in the second side's
+    losses or its optimizers' updates from step 2: step 1 agrees exactly,
+    and step 2 parts past a limit (the loss that holds the fault past
+    GAN_LOSS_TOL; each module's update against the CPU optimizer's replay of
+    its gradients past GAN_MODULE_TOL)."""
+    import test_torch_cuda as TCU
+
+    monkeypatch.setattr(TCU, "GAN_REFERENCE_THREADS", 1)
+    with TCU.planted_gan_fault(fault):
+        r = TCU.gan_steps_card_vs_cpu(2, devices=("cpu", "cpu"))
+    step1, step2 = r["records"]
+    assert set(step1["grad_rel_module"].values()) == set(step1["update_rel_module"].values()) == {0.0}, step1
+    assert r["first_divergence"] is not None and r["first_divergence"]["step"] == 2, r["first_divergence"]
+    if fault == "adam_update_x3":
+        assert all(r > TCU.GAN_MODULE_TOL["update_replayed"] for r in step2["update_replayed_rel_module"].values()), step2
+    else:
+        assert step2["loss_rel"]["loss_disc" if fault == "no_disc_real_term" else "loss_gen"] > TCU.GAN_LOSS_TOL, step2

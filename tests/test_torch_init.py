@@ -258,3 +258,52 @@ def _generator_with_a_new_layer():
 def test_a_tensor_without_a_rule_raises(make, error):
     with pytest.raises(error):
         init_random_weights(make(), torch.Generator().manual_seed(0))
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for torch: the suite runs six workers on the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+PORT_MODELS = {
+    "generator": lambda: TH.HifiGanGenerator(TH.HifiGanConfig(**GEN_KW), FLOAT32),
+    "mpd": lambda: TH.MultiPeriodDiscriminator(policy=FLOAT32),
+    "msd": lambda: TH.MultiScaleDiscriminator(policy=FLOAT32),
+    "cfm": lambda: TC.ConditionalFlowMatchingModel(TC.CFMConfig(**CFM_KW), FLOAT32),
+    "hubert": lambda: THu.HubertEncoder(THu.HubertConfig(**HUBERT_KW), FLOAT32),
+    "llama": lambda: TL.LlamaLM(TL.LlamaConfig(**LLAMA_KW), FLOAT32),
+}
+
+
+def test_truncated_normal_is_the_inverse_cdf_of_the_generators_uniforms(one_thread):
+    """``truncated_normal_`` at a fixed seed: sqrt(2) * erfinv, taken in f64,
+    of the f32 uniforms that a generator of the same seed draws between the
+    CDFs of -2 and 2 (as 2 * CDF - 1), and not a draw of torch's own
+    ``trunc_normal_``, whose method differs between torch versions."""
+    from scipy.special import erf, erfinv
+
+    from speech_resynth_torch.core.initializers import truncated_normal_
+
+    got = truncated_normal_(torch.empty(4096), torch.Generator().manual_seed(7)).double().numpy()
+    bound = float(erf(2 / math.sqrt(2)))
+    u = torch.empty(4096).uniform_(-bound, bound, generator=torch.Generator().manual_seed(7)).double().numpy()
+    want = np.clip(math.sqrt(2) * erfinv(u), -2.0, 2.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+    assert np.abs(got).max() <= 2.0 and abs(got.std() - 0.87962566103423978) < 0.03
+
+
+@pytest.mark.parametrize("model", sorted(PORT_MODELS))
+def test_no_init_rule_reaches_torchs_trunc_normal(model, monkeypatch, one_thread):
+    """Every model's random weights are drawn without ``torch.nn.init.trunc_normal_``."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.nn.init.trunc_normal_ drew a weight")
+
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_", refuse)
+    port = PORT_MODELS[model]()
+    init_random_weights(port, torch.Generator().manual_seed(0))
+    assert all(torch.isfinite(t).all() for t in port.state_dict().values())

@@ -423,7 +423,8 @@ def test_flags_and_subcommands_are_the_jax_scripts_plus_device(monkeypatch, caps
     assert options(port_convert.main, ["--help"], capsys) == options(jax_main("convert_checkpoints"), ["--help"], capsys)
     for sub in ("run", "report", "resume-check", "resume-check-at", "supervise"):
         got = options(port_gan.main, [sub, "--help"], capsys)
-        assert got == options(jax_main("gan_longrun"), [sub, "--help"], capsys) | {"--device"}, sub
+        extra = {"--device", "--max-stalls"} if sub == "supervise" else {"--device"}  # the port's bounded supervisor
+        assert got == options(jax_main("gan_longrun"), [sub, "--help"], capsys) | extra, sub
     with pytest.raises(SystemExit):
         port_gan.main(["no-such-command", "w"])
 
@@ -440,6 +441,59 @@ def test_help_of_each_tool_exits_zero_in_one_process():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert [l for l in proc.stdout.splitlines() if l.startswith("ok ")] == [f"ok {t}" for t in TOOLS]
+
+
+# ``gan_longrun supervise``'s trainers: processes that fail at once, that
+# checkpoint one step further and then fail, or that finish
+FAILING_TRAINER = "raise SystemExit(1)"
+ADVANCING_TRAINER = (
+    "import pathlib, sys\n"
+    "ckpt = pathlib.Path(sys.argv[1]) / 'run' / 'ckpt'\n"
+    "ckpt.mkdir(parents=True, exist_ok=True)\n"
+    "(ckpt / str(max((int(p.name) for p in ckpt.iterdir()), default=0) + 1)).mkdir()\n"
+    "raise SystemExit(1)\n"
+)
+FINISHING_TRAINER = "pass"
+
+
+def supervise(tmp_path, monkeypatch, trainer: str, *flags: str) -> tuple:
+    """``gan_longrun supervise`` over 5 steps with each generation's trainer
+    a ``python -c trainer <workdir>`` process and the pause between
+    generations patched out: (the SystemExit code or None, launches, pauses)."""
+    real, launches, pauses = subprocess.run, [], []
+
+    def run(cmd, *args, **kwargs):
+        launches.append(cmd)
+        return real([sys.executable, "-c", trainer, cmd[cmd.index("run") + 1]], *args, **kwargs)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(port_gan.time, "sleep", pauses.append)
+    try:
+        port_gan.main(["supervise", str(tmp_path / "w"), "--device", "cpu", "--steps", "5", *flags])
+    except SystemExit as exit_:
+        return exit_.code, launches, pauses
+    return None, launches, pauses
+
+
+@pytest.mark.parametrize("flags,generations", [((), port_gan.SUPERVISE_MAX_STALLS), (("--max-stalls", "2"), 2)],
+                         ids=["default", "max_stalls_2"])
+def test_supervise_gives_up_on_a_trainer_that_always_fails(tmp_path, monkeypatch, flags, generations):
+    """A trainer that fails without checkpointing a step: after
+    ``--max-stalls`` generations (3 by default) in a row the supervisor
+    exits non-zero, where the JAX script relaunches forever."""
+    code, launches, pauses = supervise(tmp_path, monkeypatch, FAILING_TRAINER, *flags)
+    assert code not in (0, None) and "giving up" in str(code)
+    assert len(launches) == generations and pauses == [5.0] * (generations - 1)
+
+
+@pytest.mark.parametrize("trainer,generations", [(ADVANCING_TRAINER, 5), (FINISHING_TRAINER, 1)],
+                         ids=["advancing", "finishing"])
+def test_supervise_relaunches_a_trainer_that_advances_and_stops_on_a_clean_exit(tmp_path, monkeypatch, trainer, generations):
+    """A crash that advanced the checkpointed step resets the count: five
+    failing generations, each a step further, reach the 5-step target; a
+    clean exit ends the run at once."""
+    code, launches, _ = supervise(tmp_path, monkeypatch, trainer)
+    assert code is None and len(launches) == generations
 
 
 def test_tools_that_touch_a_device_refuse_to_start_without_a_card(tmp_path, monkeypatch):
