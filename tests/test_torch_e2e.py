@@ -357,3 +357,37 @@ def test_gan_steps_check_sees_a_fault_planted_at_step_2(narrow_discriminators, m
         assert all(r > TCU.GAN_MODULE_TOL["update_replayed"] for r in step2["update_replayed_rel_module"].values()), step2
     else:
         assert step2["loss_rel"]["loss_disc" if fault == "no_disc_real_term" else "loss_gen"] > TCU.GAN_LOSS_TOL, step2
+
+
+@pytest.mark.parametrize("fault", ["mel_loss_weight_x3", "no_disc_real_term", "adam_update_x3"])
+def test_gan_steps_check_sees_a_fault_planted_under_bf16(narrow_discriminators, monkeypatch, fault):
+    """One fault a kind of limit (the generator's loss, the discriminators'
+    loss, the updates against the replay) under the loop's DEFAULT policy
+    (bf16 convs), CPU against CPU: step 2 parts past that policy's limits
+    (GAN_TOL["default"], set above what the card's bf16 steps part from the
+    CPU's)."""
+    import test_torch_cuda as TCU
+
+    monkeypatch.setattr(TCU, "GAN_REFERENCE_THREADS", 1)
+    with TCU.planted_gan_fault(fault):
+        r = TCU.gan_steps_card_vs_cpu(2, devices=("cpu", "cpu"), policy="default")
+    assert r["policy"] == "default" and r["records"][0]["loss_rel"] == dict.fromkeys(r["records"][0]["loss_rel"], 0.0)
+    assert r["first_divergence"] is not None and r["first_divergence"]["step"] == 2, r["first_divergence"]
+
+
+def test_gan_weight_change_bound_sees_a_free_trajectory_that_moves_too_little(narrow_discriminators, monkeypatch):
+    """The free trainer's updates x0.2 from step 1 under DEFAULT, CPU against
+    CPU (the synced trainer untouched): every measure taken from the
+    reference's state stays exact, and the free trajectory's final weight
+    change, about 0.2 of the reference's, falls outside the bound
+    (``gan_weight_change_within``), as one that never left its draw does."""
+    import test_torch_cuda as TCU
+
+    monkeypatch.setattr(TCU, "GAN_REFERENCE_THREADS", 1)
+    with TCU.planted_gan_fault("free_update_x0.2", from_step=1):
+        r = TCU.gan_steps_card_vs_cpu(2, devices=("cpu", "cpu"), policy="default")
+    assert r["first_divergence"] is None, r["first_divergence"]
+    cpu, free = r["gan_weight_change"]
+    assert 0 < free < 0.3 * cpu, r["gan_weight_change"]
+    assert TCU.gan_weight_change_within("default", cpu, cpu)
+    assert not TCU.gan_weight_change_within("default", cpu, free) and not TCU.gan_weight_change_within("default", cpu, 0.0)
