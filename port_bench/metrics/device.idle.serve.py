@@ -1,0 +1,11 @@
+"""Share of the serving cells' traced window in which no operation ran on the
+card (the union of operation intervals, not a sum), in %. Moves
+audio_s_per_s."""
+
+from port_bench.yardstick import readers
+
+
+def read(run):
+    if run.window is None or not run.ops:
+        return None
+    return readers.share(run.window_s - run.busy_s, run.window_s)
