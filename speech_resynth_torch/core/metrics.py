@@ -3,11 +3,12 @@ speech_resynth_tpu/core/metrics.py the training loops use).
 
 * ``MetricsWriter``: TensorBoard scalars, audio and spectrogram figures,
   written by the port's own event-file writer (``core.tbevents``).
-* ``StepTimer``: step times and throughput; ``synced_step_time`` measures
-  between host syncs, so asynchronous dispatch cannot flatter it.
-* ``trace_span``: a named range on the ``torch.profiler`` timeline
-  (``record_function``); the loops name their steps ``cfm_train_step`` and
-  ``hifigan_train_step``, as the JAX loops do.
+* ``StepTimer``: ``synced_step_time`` measures step times between host
+  syncs, so asynchronous dispatch cannot flatter it.
+* ``trace_span`` (from ``core.tracing``): a named span, on the
+  ``torch.profiler`` timeline and in the port's own recording while a
+  profiler session records; the loops name their steps ``cfm_train_step``,
+  ``hifigan_train_step`` and ``speechlm_train_step``, as the JAX loops do.
 
 * ``step_flops`` / ``cfm_step_flops`` / ``hifigan_step_flops`` / ``mfu``:
   the FLOP counts of the speech-LM, CFM and HiFi-GAN training steps and
@@ -19,7 +20,6 @@ speech_resynth_tpu/core/metrics.py the training loops use).
 
 from __future__ import annotations
 
-import contextlib
 import io
 import struct
 import time
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .tbevents import EventWriter, audio_value, image_value, scalar_value
+from .tracing import trace_span  # noqa: F401  (the loops' step spans)
 
 
 class MetricsWriter:
@@ -100,25 +101,10 @@ class MetricsWriter:
 
 
 class StepTimer:
-    """Rolling step-time and throughput tracker."""
+    """Step times between host syncs."""
 
-    def __init__(self, window: int = 50):
-        self._window = window
-        self._times: list[float] = []
-        self._last: Optional[float] = None
+    def __init__(self):
         self._sync_prev: Optional[tuple] = None
-
-    def tick(self) -> Optional[float]:
-        """Seconds since the last tick: the enqueue rate, which asynchronous dispatch flatters."""
-        now = time.perf_counter()
-        dt = None
-        if self._last is not None:
-            dt = now - self._last
-            self._times.append(dt)
-            if len(self._times) > self._window:
-                self._times.pop(0)
-        self._last = now
-        return dt
 
     def synced_step_time(self, step: int) -> Optional[float]:
         """Mean seconds per step between consecutive calls; call it right
@@ -131,25 +117,6 @@ class StepTimer:
             dt = (now - prev[1]) / (step - prev[0])
         self._sync_prev = (step, now)
         return dt
-
-    @property
-    def mean_step_time(self) -> float:
-        return float(np.mean(self._times)) if self._times else 0.0
-
-    def throughput(self, items_per_step: float) -> float:
-        st = self.mean_step_time
-        return items_per_step / st if st > 0 else 0.0
-
-    def rtf(self, audio_seconds_per_step: float) -> float:
-        """Real-time factor: audio seconds produced per wall-clock second."""
-        return self.throughput(audio_seconds_per_step)
-
-
-@contextlib.contextmanager
-def trace_span(name: str):
-    """A named range on the torch.profiler timeline."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 # dense bf16 tensor-core peak FLOP/s by device name (NVIDIA's H100 SXM data sheet)

@@ -8,6 +8,10 @@ reference's list of trimmed numpy waveforms. A duration-predicting model
 first runs its duration predictor to pick the frame bound (``_duration_bound``,
 a multiple of 64 as in the JAX package, so the padded vocoder input and the
 tail samples of each row are the same): that pre-pass waits for the card.
+While a profiler session records, ``synthesize`` records the spans
+``decoder.synthesize`` and, inside it, ``decoder.input``,
+``decoder.duration_bound``, ``decoder.ode`` and ``decoder.vocoder``
+(``core.tracing``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 from ..core.device import DeviceLike, resolve_device
 from ..core.initializers import init_by_rules
 from ..core.precision import BF16_INFERENCE, Policy
+from ..core.tracing import trace_span
 from ..dsp.mulaw import mulaw_encode
 from .cfm import CFMConfig, ConditionalFlowMatchingModel
 from .convert import load_checkpoint
@@ -147,7 +152,8 @@ class ConditionalFlowMatchingWithHifiGan:
     def _duration_bound(self, ids: torch.Tensor) -> int:
         """Frame bound of a duration-predicting batch: the largest predicted
         total, rounded up to a multiple of 64 (at least 64)."""
-        needed = int(self.model.predict_durations(ids).sum(dim=-1).max())
+        with trace_span("decoder.duration_bound"):  # the predictor and the host's wait for its totals
+            needed = int(self.model.predict_durations(ids).sum(dim=-1).max())
         return max(64, -(-max(needed, 1) // 64) * 64)
 
     @torch.inference_mode()
@@ -171,21 +177,25 @@ class ConditionalFlowMatchingWithHifiGan:
         the decoder's device; seed 0 when omitted)."""
         if pcm16 and mulaw:
             raise ValueError("pcm16 and mulaw are mutually exclusive wire formats")
-        ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(input_ids) else input_ids)
-        ids = ids.to(self.device, torch.long, non_blocking=True)
-        if x0 is None and generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        if max_frames is None and self.model.config.predict_duration:
-            max_frames = self._duration_bound(ids)
-        spectrogram, frame_mask = self.model.sample(
-            ids, dt, truncation_value, generator=generator, x0=x0, ode_method=ode_method, max_frames=max_frames
-        )
-        lengths = self.vocoder.config.waveform_lengths(frame_mask.sum(dim=1))
-        waveform = self.vocoder(spectrogram)
-        if mulaw:
-            waveform = mulaw_encode(waveform)
-        elif pcm16:
-            waveform = pcm16_encode(waveform)
+        with trace_span("decoder.synthesize"):  # host time of the whole call: the enqueue, and any wait in it
+            with trace_span("decoder.input"):  # from pageable host memory the copy first waits for the card's queue
+                ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(input_ids) else input_ids)
+                ids = ids.to(self.device, torch.long, non_blocking=True)
+            if x0 is None and generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            if max_frames is None and self.model.config.predict_duration:
+                max_frames = self._duration_bound(ids)
+            with trace_span("decoder.ode"):  # the ODE's launches, and the host's wait on a full launch queue
+                spectrogram, frame_mask = self.model.sample(
+                    ids, dt, truncation_value, generator=generator, x0=x0, ode_method=ode_method, max_frames=max_frames
+                )
+            lengths = self.vocoder.config.waveform_lengths(frame_mask.sum(dim=1))
+            with trace_span("decoder.vocoder"):  # the generator and the wire format's conversion
+                waveform = self.vocoder(spectrogram)
+                if mulaw:
+                    waveform = mulaw_encode(waveform)
+                elif pcm16:
+                    waveform = pcm16_encode(waveform)
         return waveform, lengths
 
     def __call__(

@@ -5,7 +5,9 @@ Counterpart of speech_resynth_tpu/models/speech_encoder.py: named
 and a call on (B, T) padded waveforms with lengths that returns padded unit
 arrays, durations and unit counts (a 1-D waveform gives 1-D trimmed
 outputs). On the card the tower's attention runs the flash kernel (K1) and
-the quantizer the assignment kernel (K4).
+the quantizer the assignment kernel (K4). While a profiler session records
+(``core.tracing``), each call counts ``encoder.samples_given`` (B times the
+padded length) and ``encoder.samples_valid`` (the sum of ``lengths``).
 
 Weights load from a local directory; when a file is missing ``by_name``
 warns and falls back to seeded random weights and centers (smoke-test mode).
@@ -25,6 +27,7 @@ import torch
 from ..core.device import DeviceLike, resolve_device
 from ..core.precision import BF16_INFERENCE, Policy
 from ..core.safetensors import load_file
+from ..core.tracing import trace_count
 from ..ops.dedup import deduplicate_batch
 from .composite import init_random_weights
 from .convert import hubert_state_dict_from_hf
@@ -87,6 +90,8 @@ class SpeechEncoder:
         if squeeze:
             wav = wav[None]
         ns = None if lengths is None else torch.as_tensor(np.asarray(lengths), device=self.device).long()
+        trace_count("encoder.samples_given", wav.numel())  # the batch's padded samples
+        trace_count("encoder.samples_valid", wav.numel() if lengths is None else np.sum(lengths))
         units = self._encode(wav, ns)  # (B, N) frame-rate units
 
         cfg = self.encoder.config

@@ -9,6 +9,14 @@ Counterpart of speech_resynth_tpu/pipeline/serving.py:
 * results are copied to the host (``.cpu()``) on a small thread pool, trimmed
   per request (analytic ConvTranspose lengths) and returned in submission
   order.
+
+While a profiler session records (``core.tracing``), each batch records the
+span ``serve.enqueue`` (its collate and ``decoder.synthesize``, with its
+index and request ids), the span ``serve.inflight`` (from the end of its
+enqueue to its samples on the host, closed on the copy thread) and, where it
+is drained, the counts ``serve.samples_needed`` (its requests' samples) and
+``serve.samples_computed`` (rows times its padded length, filler rows
+included).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.tracing import begin_span, end_span, trace_count, trace_span
 from ..models.composite import ConditionalFlowMatchingWithHifiGan
 from .data import bucket_length
 
@@ -72,39 +81,47 @@ class SynthesisServer:
         inflight: "queue.Queue[tuple]" = queue.Queue()
         pool = ThreadPoolExecutor(max(1, self.drain_threads))
 
-        def materialize(wavs: torch.Tensor, lengths: torch.Tensor):
-            return wavs.cpu().numpy(), lengths.cpu().numpy()  # the host copy waits for the batch
+        def materialize(wavs: torch.Tensor, lengths: torch.Tensor, span):
+            out = wavs.cpu().numpy(), lengths.cpu().numpy()  # the host copy waits for the batch
+            end_span(span)
+            return out
 
         def drain_one():
             reqs, fut = inflight.get()
             wavs, lengths = fut.result()
+            trace_count("serve.samples_needed", lengths[: len(reqs)].sum())
+            trace_count("serve.samples_computed", wavs.size)
             return [(r.request_id, wavs[j, : int(lengths[j])]) for j, r in enumerate(reqs)]
 
-        def enqueue(reqs: List[SynthesisRequest]):
-            # a partial batch is filled with one-unit rows, so every row is a real utterance
-            filler = [SynthesisRequest(np.ones(1, np.int64), -1)] * (self.batch_size - len(reqs))
-            ids = self._collate(reqs + filler)
-            wavs, lengths = self.decoder.synthesize(
-                ids,
-                dt=self.dt,
-                truncation_value=self.truncation_value,
-                generator=self.generator,
-                pcm16=self.pcm16,
-                mulaw=self.mulaw,
-            )
-            inflight.put((reqs, pool.submit(materialize, wavs, lengths)))
+        def enqueue(reqs: List[SynthesisRequest], index: int):
+            with trace_span("serve.enqueue", batch=index, requests=[r.request_id for r in reqs]):
+                # a partial batch is filled with one-unit rows, so every row is a real utterance
+                filler = [SynthesisRequest(np.ones(1, np.int64), -1)] * (self.batch_size - len(reqs))
+                ids = self._collate(reqs + filler)
+                wavs, lengths = self.decoder.synthesize(
+                    ids,
+                    dt=self.dt,
+                    truncation_value=self.truncation_value,
+                    generator=self.generator,
+                    pcm16=self.pcm16,
+                    mulaw=self.mulaw,
+                )
+            span = begin_span("serve.inflight", batch=index)
+            inflight.put((reqs, pool.submit(materialize, wavs, lengths, span)))
 
         try:
             pending: List[SynthesisRequest] = []
+            batches = 0
             for req in requests:
                 pending.append(req)
                 if len(pending) == self.batch_size:
-                    enqueue(pending)
+                    enqueue(pending, batches)
+                    batches += 1
                     pending = []
                     if inflight.qsize() >= self.max_inflight:
                         yield from drain_one()
             if pending:  # final partial batch
-                enqueue(pending)
+                enqueue(pending, batches)
             while not inflight.empty():
                 yield from drain_one()
         finally:

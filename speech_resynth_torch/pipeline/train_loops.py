@@ -247,7 +247,6 @@ def train_flow_matching(config, device: DeviceLike = None) -> dict:
                 with trace_span("cfm_train_step"):
                     state, metrics = step_fn(state, batch, rngs.seed_for(step))
                 step += 1
-                timer.tick()
                 if step % trainer_config.summary_interval == 0:
                     values = _read_metrics(metrics)
                     writer.scalars(values, step, prefix="train/")
@@ -360,7 +359,6 @@ def train_hifigan(config, device: DeviceLike = None) -> dict:
                 with trace_span("hifigan_train_step"):
                     state, metrics = step_fn(state, batch)
                 step += 1
-                timer.tick()
                 if step % trainer_config.summary_interval == 0:
                     values = _read_metrics(metrics)
                     writer.scalars(values, step, prefix="training/")
@@ -527,7 +525,6 @@ def train_speechlm(config, device: DeviceLike = None) -> dict:
                 with trace_span("speechlm_train_step"):
                     state, metrics = step_fn(state, batch)
                 step += 1
-                timer.tick()
                 if step % trainer_config.summary_interval == 0:
                     values = _read_metrics(metrics)
                     writer.scalars(values, step, prefix="train/")

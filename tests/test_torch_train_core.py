@@ -309,13 +309,23 @@ def test_step_timer_and_trace_span():
     import time
 
     from speech_resynth_torch.core.metrics import StepTimer, trace_span
+    from speech_resynth_torch.core.tracing import recorded
 
     timer = StepTimer()
-    assert timer.synced_step_time(0) is None and timer.tick() is None
+    assert timer.synced_step_time(0) is None
     time.sleep(0.01)
-    assert timer.synced_step_time(2) >= 0.005 and timer.tick() >= 0.01
-    assert timer.throughput(4) > 0
+    assert 0.005 <= timer.synced_step_time(2) < 1.0  # seconds per step: two steps in one interval of >= 10 ms
+    assert timer.synced_step_time(2) is None  # no step since the last call
+    assert not any(hasattr(timer, gone) for gone in ("tick", "mean_step_time", "throughput", "rtf"))
+    before = recorded()
+    with trace_span("cfm_train_step"):  # no profiler session: nothing recorded
+        pass
+    assert recorded() == before
     with torch.profiler.profile() as prof:
-        with trace_span("cfm_train_step"):
+        t0 = time.time_ns()
+        with trace_span("cfm_train_step", step=7):
             torch.ones(3).sum()
+        t1 = time.time_ns()
     assert "cfm_train_step" in {e.key for e in prof.key_averages()}
+    (span,) = [s for s in recorded().spans if s.name == "cfm_train_step"]
+    assert t0 <= span.start_ns <= span.end_ns <= t1 and span.attrs == {"step": 7} and span.parent is None
