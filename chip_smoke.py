@@ -11,7 +11,8 @@
    that computes the same function there: K1 flash attention (the decoder's,
    HuBERT's and the LM's causal shapes), K2 fused MRF branch, K3 whole MRF
    stage (beside the per-branch route of three K2 launches), K4 k-means
-   assignment. Data-dependent shapes (the duration decoder's frame bounds,
+   assignment; K5, the velocity model's conv feed-forward, is held after the
+   paths (step 18). Data-dependent shapes (the duration decoder's frame bounds,
    the continuation decoder's bound) are checked after their runs; prints the
    ``init`` record: three named tensors of each model an entry point draws at
    random, their std beside the std of the rule their model declares;
@@ -127,7 +128,11 @@
    in its validations), ``report`` on its event files, and the verdict of
    ``resume-check`` (bit-equal after SIGKILL), which ran beside step 13's
    ``gan_drift``;
-18. holds and times K1, K2 and K4 at the shapes of those paths (sLM21
+18. holds K5 against its plain version at every (batch, frames) the paths
+   above launched it at (two launches a feed-forward call: 128 a bf16
+   euler-16 decoder batch; none in f32 or where a gradient is recorded),
+   timed at the served and the plain resynthesis batches beside the plain
+   chain it replaced; holds and times K1, K2 and K4 at the shapes of those paths (sLM21
    tokenize and scoring, preprocess tokenize, HiFi-GAN validation, the
    CFM loop's dev sweep, the trained pair's decoder, the LM loop's scoring
    and generation, evaluate's decoder, the CLI's encoder and decoder
@@ -295,6 +300,13 @@ def wire_share(np, what: str, codes) -> float:
 
 ATT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 MRF_TOL = {"float32": 1e-3, "bfloat16": 6e-2}
+# K5 against its plain version on the same bf16 operands: both sum in f32 and
+# round h once, so they part by a bf16 ulp of h where the summation order or
+# __expf moves it across a rounding boundary: 1e-2 of the output's peak (as
+# tests/test_torch_cuda.py holds it)
+FF_TOL = 1e-2
+FF_PER_BATCH = 2 * 4 * 16  # K5 launches of one euler-16 decoder batch: two a feed-forward call, 4 layers
+K5 = None  # speech_resynth_torch.ops.conv_ff, bound by main() once the package imports
 DTYPES = ("bfloat16", "float32")
 
 
@@ -825,6 +837,69 @@ def codebook_phase(torch, C) -> list:
     return records
 
 
+def ff_module(torch):
+    """The velocity model's feed-forward at the config's widths (C 256, I
+    896) under BF16_INFERENCE on the card, its weights and biases drawn from a
+    seed: the operands of the K5 checks and the plain chain they are timed
+    beside."""
+    from speech_resynth_torch.core.precision import BF16_INFERENCE
+    from speech_resynth_torch.models.cfm import CFMConfig
+    from speech_resynth_torch.models.transformer import ConvFeedForward
+
+    cfg = CFMConfig()
+    ff = ConvFeedForward(cfg.hidden_size, cfg.intermediate_size, policy=BF16_INFERENCE)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in ff.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * (0.5 if p.dim() == 1 else (3 * p.shape[1]) ** -0.5))
+    return ff.cuda().eval().requires_grad_(False)
+
+
+def conv_ff_shape(torch, ff, gen, path: str, B: int, N: int, timed_run: bool = False) -> dict:
+    """K5 against conv_ff_reference on ``ff``'s laid-out weights, on (B, N)
+    frames with a padded-tail mask (row 0 full), the input masked as the
+    module masks it; fails past FF_TOL of the reference's peak. With
+    ``timed_run``, one feed-forward call timed: the kernel (host loop and
+    device time from a CUDA graph) beside the plain chain (``ff``'s cuDNN
+    route, its input mask included: the yardstick K5 replaced), and the bound
+    from the call's bytes and operations."""
+    c, i = ff.conv2.out_channels, ff.conv2.in_channels
+    x = torch.randn(B, N, c, generator=gen, device="cuda")
+    lengths = torch.randint(1, N + 1, (B,), generator=gen, device="cuda")
+    lengths[0] = N
+    mask = torch.arange(N, device="cuda")[None, :] < lengths[:, None]
+    x = x.masked_fill(~mask[..., None], 0).to(torch.bfloat16)
+    ops = ff.operands()
+    with torch.no_grad():
+        got = K5.conv_ff_kernel(x, ops, mask)
+        want = K5.conv_ff_reference(x, ops, mask)
+    torch.cuda.synchronize()
+    err, peak = max_err(torch, got, want), float(want.float().abs().max())
+    record = {"path": path, "shape": [B, N, c, i], "dtype": "bfloat16", "max_abs_err": err, "ref_peak": peak, "tol": FF_TOL}
+    if not torch.isfinite(got.float()).all() or not err <= FF_TOL * peak:
+        fail(f"conv_ff against conv_ff_reference: {record}")
+    if timed_run:
+        def kernel():
+            K5.conv_ff_kernel(x, ops, mask)
+
+        def chain():
+            ff.route = lambda x_, dropout_on=False: "plain chain"  # this call's route only
+            try:
+                ff(x, mask)
+            finally:
+                del ff.route
+
+        with torch.no_grad():
+            times = timed(torch, kernel, chain, None,
+                          nbytes=2.0 * B * N * (2 * c + 2 * i) + 2.0 * 9 * c * i + B * N + 4.0 * (2 * i + c),
+                          flops=18.0 * B * N * c * i, peak_flops=PEAK_BF16_FLOPS, iters=(20, 10, 0))
+            times["graph_ms"] = graph_ms(torch, kernel, iters=10, reps=3)
+            times["plain_graph_ms"] = graph_ms(torch, chain, iters=10, reps=3)
+        record.update(times, plain="the plain chain: cuDNN convs with their layout copies, bias, SiGLU and mask passes")
+    print(json.dumps({"phase": "conv_ff", **record}))
+    return record
+
+
 def speechlike_waves(np, rng, n: int, seconds=(8, 10), rate: int = SAMPLE_RATE):
     """``n`` seeded waveforms of 8-10 s (or ``seconds``; the first the
     longest) at ``rate``: a gliding voiced tone with harmonics under a
@@ -977,9 +1052,7 @@ def resynth_phase(torch, np, A, M, C, enc):
             synthesize(config("test-a", Path(tmp) / f"warm_{label}"), encoder, decoder)  # warm-up: one batch
             torch.cuda.synchronize()
             tgt = Path(tmp) / f"out_{label}"
-            A.flash_attention.launches = 0
-            M.mrf_branch_kernel.launches = 0
-            C.assign_kernel.launches = 0
+            A.flash_attention.launches = M.mrf_branch_kernel.launches = C.assign_kernel.launches = K5.conv_ff_kernel.launches = 0
             t0 = time.perf_counter()
             synthesize(config("test-*", tgt), encoder, decoder)
             torch.cuda.synchronize()
@@ -988,12 +1061,14 @@ def resynth_phase(torch, np, A, M, C, enc):
                 "flash_attention": A.flash_attention.launches,
                 "codebook_assign": C.assign_kernel.launches,
                 "mrf_branch": M.mrf_branch_kernel.launches,
+                "conv_ff": K5.conv_ff_kernel.launches,
             }
             n_batches = RESYNTH_FILES // ENC_BATCH
-            expected = {"flash_attention": (11 + 64) * n_batches, "codebook_assign": n_batches, "mrf_branch": 9 * n_batches}
+            expected = {"flash_attention": (11 + 64) * n_batches, "codebook_assign": n_batches, "mrf_branch": 9 * n_batches,
+                        "conv_ff": FF_PER_BATCH * n_batches}
             print(json.dumps({"phase": f"resynth_{label}_launches", "launches": launches, "expected": expected}))
             if launches != expected:
-                fail(f"{label} resynthesis launches {launches} != expected {expected} (11+64 K1, 1 K4, 9 K2 per batch)")
+                fail(f"{label} resynthesis launches {launches} != expected {expected} (11+64 K1, 1 K4, 9 K2, 128 K5 per batch)")
 
             # every output file, with the length its frames give (frames recomputed
             # here), and the frames each batch's decoder ran at
@@ -1132,16 +1207,16 @@ def slice_phase(torch, np, A, M):
 
     n_batches = 4
     seqs = requests(n_batches * SERVE_BATCH)
-    A.flash_attention.launches = 0
-    M.mrf_branch_kernel.launches = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = K5.conv_ff_kernel.launches = 0
     t1 = time.perf_counter()
     wavs = server.synthesize_many(seqs)
     wall = time.perf_counter() - t1
-    launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches}
-    expected = {"flash_attention": 64 * n_batches, "mrf_branch": 9 * n_batches}
+    launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                "conv_ff": K5.conv_ff_kernel.launches}
+    expected = {"flash_attention": 64 * n_batches, "mrf_branch": 9 * n_batches, "conv_ff": FF_PER_BATCH * n_batches}
     print(json.dumps({"phase": "slice_launches", "launches": launches, "expected": expected}))
     if launches != expected:
-        fail(f"kernel launches {launches} != expected {expected} (64 K1 + 9 K2 per euler-16 batch)")
+        fail(f"kernel launches {launches} != expected {expected} (64 K1 + 128 K5 + 9 K2 per euler-16 batch)")
 
     for seq, wav in zip(seqs, wavs):
         if wav.dtype != np.int16 or wav.shape != (int(voc_cfg.waveform_lengths(len(seq))),):
@@ -1216,6 +1291,7 @@ def serving_fused_phase(torch, np, A, M, voc_cfg):
             torch.cuda.synchronize()
             if fused:
                 A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+                K5.conv_ff_kernel.launches = 0
             t0 = time.perf_counter()
             outs[fused] = server.synthesize_many(seqs)
             walls[fused] = time.perf_counter() - t0
@@ -1224,11 +1300,12 @@ def serving_fused_phase(torch, np, A, M, voc_cfg):
                     "flash_attention": A.flash_attention.launches,
                     "mrf_branch": M.mrf_branch_kernel.launches,
                     "mrf_stage": M.mrf_stage_kernel.launches,
+                    "conv_ff": K5.conv_ff_kernel.launches,
                 }
-    expected = {"flash_attention": 64, "mrf_branch": 0, "mrf_stage": 3}
+    expected = {"flash_attention": 64, "mrf_branch": 0, "mrf_stage": 3, "conv_ff": FF_PER_BATCH}
     print(json.dumps({"phase": "serving_fused_launches", "launches": launches, "expected": expected}))
     if launches != expected:
-        fail(f"fused serving launches {launches} != expected {expected} (64 K1 + 3 K3 per batch)")
+        fail(f"fused serving launches {launches} != expected {expected} (64 K1 + 128 K5 + 3 K3 per batch)")
     tol = 5e-2  # relative to the per-branch batch's peak
     shapes_ok = all(a.shape == b.shape == (int(voc_cfg.waveform_lengths(len(s))),) for a, b, s in zip(outs[True], outs[False], seqs))
     err, peak = (rel_err(np, np.concatenate(outs[True]), np.concatenate(outs[False])) if shapes_ok else (math.inf, 0.0))
@@ -1294,13 +1371,13 @@ def serving_options_phase(torch, np, A, M) -> dict:
         wire_ready(torch, dec.vocoder)
     server = SynthesisServer(decoders["cuda"], batch_size=SERVE_BATCH, dt=0.0625, truncation_value=1.0, mulaw=True)
     torch.cuda.synchronize()
-    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = K5.conv_ff_kernel.launches = 0
     t0 = time.perf_counter()
     codes = server.synthesize_many(seqs)
     wall = time.perf_counter() - t0
     launches["mulaw"] = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
-                         "mrf_stage": M.mrf_stage_kernel.launches}
-    expected["mulaw"] = {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0}
+                         "mrf_stage": M.mrf_stage_kernel.launches, "conv_ff": K5.conv_ff_kernel.launches}
+    expected["mulaw"] = {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0, "conv_ff": 0}  # f32: the plain chain
     cpu_codes, cpu_lengths = decoders["cpu"].synthesize(rows, dt=0.0625, truncation_value=1.0, x0=x0_rows, mulaw=True)
     silence = int(mulaw_encode(torch.zeros(1))[0])
     shapes_ok = all(c.dtype == np.uint8 and c.shape == (int(voc_cfg.waveform_lengths(len(q))),) for c, q in zip(codes, seqs))
@@ -1315,14 +1392,14 @@ def serving_options_phase(torch, np, A, M) -> dict:
         for dec in decoders.values():
             dec.vocoder.conv_post.weight.div_(WIRE_GAIN)  # a power of two: the draw again, exactly
     torch.cuda.synchronize()
-    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = K5.conv_ff_kernel.launches = 0
     t0 = time.perf_counter()
     wav, lengths = decoders["cuda"].synthesize(ids, dt=0.0625, truncation_value=1.0, x0=x0, ode_method="midpoint")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["midpoint"] = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
-                            "mrf_stage": M.mrf_stage_kernel.launches}
-    expected["midpoint"] = {"flash_attention": 128, "mrf_branch": 9, "mrf_stage": 0}
+                            "mrf_stage": M.mrf_stage_kernel.launches, "conv_ff": K5.conv_ff_kernel.launches}
+    expected["midpoint"] = {"flash_attention": 128, "mrf_branch": 9, "mrf_stage": 0, "conv_ff": 0}
     cpu_wav, cpu_len = decoders["cpu"].synthesize(rows, dt=0.0625, truncation_value=1.0, x0=x0_rows, ode_method="midpoint")
     err, peak = rel_err(np, wav[:OPTIONS_CPU_ROWS], cpu_wav)
     runs["midpoint"] = {"wall_seconds": wall, "max_rel_err_vs_cpu": err, "ref_peak": peak, "tol": 2e-3, "cpu_rows": OPTIONS_CPU_ROWS,
@@ -1603,7 +1680,7 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
         for label, kw in runs:
             out_wav = tmp / f"{label}.wav"
             torch.cuda.synchronize()
-            A.flash_attention.launches = C.assign_kernel.launches = 0
+            A.flash_attention.launches = C.assign_kernel.launches = K5.conv_ff_kernel.launches = 0
             M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
             t1 = time.perf_counter()
             result = generate_speechlm(config, str(tmp / "prompt.wav"), str(out_wav), str(tmp / "decoder"), max_new_tokens=CONT_NEW_TOKENS, **kw)
@@ -1612,6 +1689,7 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
             launches = {
                 "flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
                 "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+                "conv_ff": K5.conv_ff_kernel.launches,
             }
             units, gen_units = result["units"], result["generated_units"]
             ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
@@ -1619,7 +1697,7 @@ def continuation_phase(torch, np, A, C, M, tmp: Path) -> dict:
             bound = dec._duration_bound(ids)
             n_samples = int(voc_cfg.waveform_lengths(frames))
             # HuBERT-base to layer 6 + 16 euler steps x 4 CFM layers; 1 K4; 3 K3 in the one vocoder call
-            expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3}
+            expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3, "conv_ff": FF_PER_BATCH}
             prompt_units = len(units) - len(gen_units)
             record = {
                 "phase": f"continuation_{label}", "prompt_units": prompt_units, "generated_units": len(gen_units),
@@ -1861,7 +1939,7 @@ def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
         for label, kw in runs:
             generator = torch.Generator(device="cuda").manual_seed(kw.pop("seed", 0))
             torch.cuda.synchronize()
-            A.flash_attention.launches = C.assign_kernel.launches = 0
+            A.flash_attention.launches = C.assign_kernel.launches = K5.conv_ff_kernel.launches = 0
             M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
             t0 = time.perf_counter()
             prompt_units = enc(wav)["units"].cpu().numpy()
@@ -1872,13 +1950,14 @@ def continuation_speculative_phase(torch, np, A, C, M, tmp: Path) -> dict:
             launches = {
                 "flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
                 "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+                "conv_ff": K5.conv_ff_kernel.launches,
             }
             units = result["units"]
             ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
             frames = int(dec.model.predict_durations(ids).sum())
             bound = dec._duration_bound(ids)
             n_samples = int(voc_cfg.waveform_lengths(frames))
-            expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3}
+            expected = {"flash_attention": 6 + 64, "codebook_assign": 1, "mrf_branch": 0, "mrf_stage": 3, "conv_ff": FF_PER_BATCH}
             codes = np.round(np.clip(result["waveform"], -1.0, 1.0) * 32767.0)  # as the port's pcm16_encode
             print(json.dumps({
                 "phase": f"continuation_speculative_{label}", "prompt_units": len(prompt_units),
@@ -2675,9 +2754,10 @@ def train_loops_phase(torch, np, A, M, root: Path, kill: dict) -> dict:
         record[f"cfm_{epochs}_epochs"] = {"step": result["step"], "checkpoints": steps, "metrics": result["metrics"],
                                           "seconds": time.perf_counter() - t1}
 
-    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = K5.conv_ff_kernel.launches = 0
     cfm_run(2)
-    cfm_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches}
+    cfm_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                    "conv_ff": K5.conv_ff_kernel.launches}
 
     dev = MelDataset(str(root / "wav"), str(root / "spectrogram"), train_loops._mel_file_list(str(root / "dev.json")),
                      GAN_TRAIN["segment_size"], 400, 320, False)
@@ -2704,11 +2784,13 @@ def train_loops_phase(torch, np, A, M, root: Path, kill: dict) -> dict:
     writer = RecordingWriter()
     real_writer, train_loops.MetricsWriter = train_loops.MetricsWriter, lambda *args, **kwargs: writer
     A.flash_attention.launches, M.mrf_branch_kernel.launches = cfm_launches["flash_attention"], cfm_launches["mrf_branch"]
+    K5.conv_ff_kernel.launches = cfm_launches["conv_ff"]
     try:
         cfm_run(3)
     finally:
         train_loops.MetricsWriter = real_writer
-    cfm_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches}
+    cfm_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
+                    "conv_ff": K5.conv_ff_kernel.launches}
     # validate_flow_matching: at most 16 dev utterances in batches of 8, each padded to its bucket
     dev_units = json.loads((root / "dev.json").read_text())
     sweep = [bucket_length(max(len(dev_units[n]["units"]) for n in list(dev_units)[i : i + 8])) for i in range(0, 16, 8)]
@@ -2724,7 +2806,8 @@ def train_loops_phase(torch, np, A, M, root: Path, kill: dict) -> dict:
                                                                        (gan_writer, "training/steps_per_sec"))}
     if not all(v is not None and 0 < v < 1 for v in record["loop_mfu"].values()):
         fail(f"the loops' MFU scalars: {record['loop_mfu']}")
-    want = {"flash_attention": 6 * 4 + 4 * 16 * len(sweep), "mrf_branch": 9 * len(sweep)}
+    # the steps record a gradient, so only the dev sweep takes K5
+    want = {"flash_attention": 6 * 4 + 4 * 16 * len(sweep), "mrf_branch": 9 * len(sweep), "conv_ff": FF_PER_BATCH * len(sweep)}
     if cfm_launches != want:
         fail(f"train_flow_matching launched {cfm_launches} in 6 steps and its dev sweep, expected {want}")
 
@@ -2732,11 +2815,11 @@ def train_loops_phase(torch, np, A, M, root: Path, kill: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(45)
     ids = torch.randint(1, CFM_TRAIN["vocab_size"] + 1, (EXPORT_BATCH, EXPORT_UNITS), generator=gen, device="cuda")
     ids[1:, EXPORT_UNITS * 3 // 4 :] = 0
-    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = K5.conv_ff_kernel.launches = 0
     wave, lengths = decoder.synthesize(ids, dt=CFM_TRAIN["dt"], truncation_value=CFM_TRAIN["truncation_value"])
     torch.cuda.synchronize()
     export_launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
-                       "mrf_stage": M.mrf_stage_kernel.launches}
+                       "mrf_stage": M.mrf_stage_kernel.launches, "conv_ff": K5.conv_ff_kernel.launches}
     want = decoder.vocoder.config.waveform_lengths((ids != 0).sum(dim=1))
     record["export"] = {"batch": [EXPORT_BATCH, EXPORT_UNITS], "lengths": lengths.tolist(), "launches": export_launches,
                         "peak": float(wave.float().abs().max())}
@@ -3003,17 +3086,20 @@ def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
     dec = ConditionalFlowMatchingWithHifiGan.from_pretrained(cont_tmp / "decoder", device="cuda")
     for label, decoder in (("units", None), ("speech", str(cont_tmp / "decoder"))):
         A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+        K5.conv_ff_kernel.launches = 0
         out_wav = root / f"generated_{label}.wav"
         t0 = time.perf_counter()
         out = train_loops.generate_speechlm(config_from_dict(config), str(cont_tmp / "prompt.wav"), str(out_wav) if decoder else None,
                                             decoder, max_new_tokens=LM_GEN_TOKENS, temperature=0.0)
         torch.cuda.synchronize()
         launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
-                    "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+                    "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+                    "conv_ff": K5.conv_ff_kernel.launches}
         units = out["units"]
         ids = torch.from_numpy(units.astype(np.int64) + 1)[None].cuda()
         bound = dec._duration_bound(ids)
-        expected = {"flash_attention": 6 + (64 if decoder else 0), "codebook_assign": 1, "mrf_branch": 9 if decoder else 0, "mrf_stage": 0}
+        expected = {"flash_attention": 6 + (64 if decoder else 0), "codebook_assign": 1, "mrf_branch": 9 if decoder else 0, "mrf_stage": 0,
+                    "conv_ff": FF_PER_BATCH if decoder else 0}
         generate[label] = {"launches": launches, "expected": expected, "prompt_units": len(units) - len(out["generated_units"]),
                            "generated_units": len(out["generated_units"]), "bound": bound,
                            "frames": int(dec.model.predict_durations(ids).sum()), "seconds": time.perf_counter() - t0}
@@ -3046,12 +3132,14 @@ def speechlm_loop_phase(torch, np, A, C, M, root: Path, cont_tmp: Path) -> dict:
         fail(f"cli.speechlm eval: {cli['eval']}, {len(lines)} lexical test scores")
     out_wav = root / "generated_cli.wav"
     A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    K5.conv_ff_kernel.launches = 0
     t0 = time.perf_counter()
     lm_cli.main(["generate", "--config", str(cfg_path), "--prompt-wav", str(cont_tmp / "prompt.wav"), "--out-wav", str(out_wav),
                  "--decoder-dir", str(cont_tmp / "decoder"), "--max-new-tokens", str(LM_GEN_TOKENS), "--temperature", "0.0"])
     torch.cuda.synchronize()
     launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
-                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+                "conv_ff": K5.conv_ff_kernel.launches}
     # greedy decoding from the same checkpoint and prompt: the direct call's continuation, so its length
     direct = audio_io.info(root / "generated_speech.wav")
     cli["generate"] = {"launches": launches, "seconds": time.perf_counter() - t0, "wav": audio_io.info(out_wav), "direct_wav": direct}
@@ -3473,20 +3561,20 @@ def evaluate_phase(torch, np, A, M, root: Path, asr, mos) -> dict:
     for name, scorers in (("stand_in", (NullASR(), EnergyMOS())), ("native", (asr, mos))):
         calls.clear()
         mos_lengths.clear()
-        A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+        A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = K5.conv_ff_kernel.launches = 0
         t0 = time.perf_counter()
         rows = evaluate(config(name, test_file), decoder=decoder, asr=scorers[0], mos=scorers[1])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
-                    "mrf_stage": M.mrf_stage_kernel.launches}
+                    "mrf_stage": M.mrf_stage_kernel.launches, "conv_ff": K5.conv_ff_kernel.launches}
         whisper = whisper_launch_shapes(calls, asr.config.decoder_layers, asr.config.decoder_attention_heads,
                                         asr.config.max_source_positions)
         ssl = mos.config.ssl
         utmos = [([1, ssl.num_attention_heads, int(ssl.num_frames(max(1, -(-n // 16000)) * 16000)), 64], ssl.num_hidden_layers)
                  for n in mos_lengths]
         want = {"flash_attention": 64 * len(frames) + sum(n for _, n in whisper + utmos), "mrf_branch": 9 * len(frames),
-                "mrf_stage": 0}
+                "mrf_stage": 0, "conv_ff": FF_PER_BATCH * len(frames)}
         scorer_names = [type(scorers[1 if r.startswith("MOS") else 0]).__name__ for r in ROWS]
         from_csv = read_table(root / name / "score.csv")
         run = {"rows": rows, "wall_seconds": wall, "launches": launches, "whisper_decode_steps": len(calls),
@@ -3581,6 +3669,7 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
     record = {"phase": "cli", "help_exit_codes": helps, "files": CLI_FILES, "batch": CLI_BATCH}
 
     A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    K5.conv_ff_kernel.launches = 0
     t1 = time.perf_counter()
     cli.main(["all", "--config", str(path)])
     torch.cuda.synchronize()
@@ -3594,7 +3683,8 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
     torch.cuda.synchronize()
     record["synthesize_seconds"] = time.perf_counter() - t1
     launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
-                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+                "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+                "conv_ff": K5.conv_ff_kernel.launches}
 
     splits = {"train": CLI_TRAIN, "dev": CLI_DEV, "test": CLI_FILES - CLI_TRAIN - CLI_DEV}
     tokenize_batches = [min(PRE_TOKENIZE_BATCH, n - i) for n in splits.values() for i in range(0, n, PRE_TOKENIZE_BATCH)]
@@ -3619,6 +3709,7 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
     want = {
         "flash_attention": 11 * len(tokenize_batches) + 2 * 4 + 64 * (len(dev_frames) + len(test_frames)) + 11 + 64,
         "codebook_assign": len(tokenize_batches) + 1, "mrf_branch": 9 * (len(dev_frames) + len(test_frames) + 1), "mrf_stage": 0,
+        "conv_ff": FF_PER_BATCH * (len(dev_frames) + len(test_frames) + 1),  # the CFM steps record a gradient: no K5
     }
     record.update(launches=launches, expected=want, tokenize_batches=tokenize_batches,
                   dev_frames=dev_frames, test_frames=test_frames, wavs=len(wavs), units={k: len(v) for k, v in units.items()},
@@ -3639,26 +3730,26 @@ def cli_phase(torch, np, A, C, M, root: Path) -> dict:
 def entry_phase(torch, A, M) -> dict:
     """``graft_entry.entry()`` on the card: the flagship decoder at reference
     sizes on its seeded (2, 128) ids. One warm-up call, then one counted and
-    timed call: 64 K1 (16 ODE steps x 4 layers) and 9 K2, finite waves of
+    timed call: 64 K1 (16 ODE steps x 4 layers), 128 K5 and 9 K2, finite waves of
     ``HifiGanConfig.waveform_lengths`` samples."""
     from speech_resynth_torch import graft_entry
 
     fn, (ids, generator) = graft_entry.entry()
     fn(ids, generator)
     torch.cuda.synchronize()
-    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    A.flash_attention.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = K5.conv_ff_kernel.launches = 0
     t0 = time.perf_counter()
     wave, lengths = fn(ids, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_attention": A.flash_attention.launches, "mrf_branch": M.mrf_branch_kernel.launches,
-                "mrf_stage": M.mrf_stage_kernel.launches}
+                "mrf_stage": M.mrf_stage_kernel.launches, "conv_ff": K5.conv_ff_kernel.launches}
     want = graft_entry.VOCODER_CONFIG.waveform_lengths(torch.full((ids.shape[0],), ids.shape[1], device="cuda"))
     record = {"phase": "entry", "ids": list(ids.shape), "ms": ms, "launches": launches, "lengths": lengths.tolist(),
               "wave": list(wave.shape), "audio_seconds_per_s": float(lengths.sum()) / SAMPLE_RATE / (ms / 1e3),
               "peak": float(wave.float().abs().max())}
     print(json.dumps(record))
-    if (launches != {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0} or not torch.equal(lengths, want)
+    if (launches != {"flash_attention": 64, "mrf_branch": 9, "mrf_stage": 0, "conv_ff": FF_PER_BATCH} or not torch.equal(lengths, want)
             or wave.device.type != "cuda" or not torch.isfinite(wave.float()).all()):
         fail(f"graft_entry.entry(): {record}")
     return {"launches": launches, "ids": list(ids.shape)}
@@ -3911,6 +4002,7 @@ def tools_phase(torch, np, A, C, M, root: Path, resume: dict) -> dict:
     converted = SpeechEncoder.by_name(*ENCODER, checkpoint_dir=str(out / "models"), device="cuda")
     waves, lengths = padded(np, speechlike_waves(np, np.random.default_rng(72), ENC_BATCH))
     A.flash_attention.launches = C.assign_kernel.launches = M.mrf_branch_kernel.launches = M.mrf_stage_kernel.launches = 0
+    K5.conv_ff_kernel.launches = 0
     units = [e(waves, lengths)["units"] for e in (source, converted)]
     decoders = [ConditionalFlowMatchingWithHifiGan.from_pretrained(d, device="cuda") for d in (src / "composite", out / "composite")]
     gen = torch.Generator(device="cuda").manual_seed(73)
@@ -3920,7 +4012,8 @@ def tools_phase(torch, np, A, C, M, root: Path, resume: dict) -> dict:
     audio = [d.synthesize(ids, dt=0.0625, truncation_value=1.0, x0=x0)[0] for d in decoders]
     torch.cuda.synchronize()
     convert_launches = {"flash_attention": A.flash_attention.launches, "codebook_assign": C.assign_kernel.launches,
-                        "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches}
+                        "mrf_branch": M.mrf_branch_kernel.launches, "mrf_stage": M.mrf_stage_kernel.launches,
+                        "conv_ff": K5.conv_ff_kernel.launches}
     held = {
         "encoder_state": all(torch.equal(v, converted.encoder.state_dict()[k]) for k, v in source.encoder.state_dict().items()),
         "centers": torch.equal(converted.quantizer.centers.cpu(), torch.from_numpy(centers)),
@@ -3939,7 +4032,7 @@ def tools_phase(torch, np, A, C, M, root: Path, resume: dict) -> dict:
                                 for p in (root / "whisper-large-v3").iterdir() if p.suffix != ".safetensors")
     del asr, got, whisper_want
     torch.cuda.empty_cache()
-    expected = {"flash_attention": 2 * (11 + 64), "codebook_assign": 2, "mrf_branch": 2 * 9, "mrf_stage": 0}
+    expected = {"flash_attention": 2 * (11 + 64), "codebook_assign": 2, "mrf_branch": 2 * 9, "mrf_stage": 0, "conv_ff": 2 * FF_PER_BATCH}
     record.update(loaders_seconds=time.perf_counter() - t0, convert_held=held, convert_launches=convert_launches)
     if not all(held.values()) or convert_launches != expected:
         fail(f"convert_checkpoints outputs: {held}, launches {convert_launches} (expected {expected})")
@@ -4077,6 +4170,9 @@ def main() -> int:
         from speech_resynth_torch.ops import codebook as C
         from speech_resynth_torch.ops import fused_mrf as M
         from speech_resynth_torch.ops.build import kernel_library
+
+        global K5
+        from speech_resynth_torch.ops import conv_ff as K5
         from speech_resynth_torch.pipeline.streaming import context_frames_for
     except ImportError as e:
         print(f"chip_smoke: the speech_resynth_torch package is not importable here ({e})", file=sys.stderr)
@@ -4311,8 +4407,10 @@ def main() -> int:
             for C_, T_, K_ in mrf_shapes(voc_cfg, frames):
                 add("mrf_branch", path, [batch, C_, T_, K_], 1)
 
-    def decoder_batch(path, frames, batch=SERVE_BATCH, fused=False):
+    def decoder_batch(path, frames, batch=SERVE_BATCH, fused=False, bf16=True):
         add("flash_attention", path, [batch, 2, frames, 128], 64)
+        if bf16:  # f32 takes the feed-forward's plain chain
+            add("conv_ff", path, [batch, frames], FF_PER_BATCH)
         vocoder_call(path, frames, batch, fused)
 
     def encoder_batch(path, frames, batch=ENC_BATCH, layers=11, centers=2000):
@@ -4323,7 +4421,7 @@ def main() -> int:
         decoder_batch("serving", BUCKET)
     for _ in range(serving_fused["mrf_stage"] // 3):
         decoder_batch("serving_fused", BUCKET, fused=True)
-    decoder_batch("serving_mulaw", BUCKET)
+    decoder_batch("serving_mulaw", BUCKET, bf16=False)
     add("flash_attention", "synthesize_midpoint", [SERVE_BATCH, 2, BUCKET, 128], 2 * 64)  # two velocity evaluations a step
     vocoder_call("synthesize_midpoint", BUCKET, SERVE_BATCH, False)
     for _ in range(encoding["codebook_assign"]):
@@ -4409,6 +4507,16 @@ def main() -> int:
             if n and path not in shapes.get(kernel, {}):
                 fail(f"{kernel} on {path}: {n} launches counted, none by shape")
 
+    # K5 at every (B, N) a path launched it at (the first path that did names it), timed at the
+    # served batch's and the plain resynthesis batch's
+    ff_at = {}
+    for path, counts in shapes["conv_ff"].items():
+        for shape in counts:
+            ff_at.setdefault(shape, path)
+    ff, timed_ff = ff_module(torch), {(SERVE_BATCH, BUCKET), (ENC_BATCH, RESYNTH_FRAMES)}
+    k5 = [conv_ff_shape(torch, ff, gen, path, *shape, timed_run=shape in timed_ff) for shape, path in sorted(ff_at.items())]
+    del ff
+
     def entry(name, source, replaces, records, per, batch):
         """``batch``: (record, launches) of the unit of work ``per`` names."""
         def total(key):
@@ -4438,6 +4546,8 @@ def main() -> int:
     def record(records, path):
         return next(r for r in records if r["path"] == path)
 
+    resynth_ff = next(r for r in k5 if r["shape"][:2] == [ENC_BATCH, RESYNTH_FRAMES])
+
     plain_decoder, resynth_encoder = "resynth decoder (plain config)", "resynth encoder"
     resynth_batch = f"one batch of {ENC_BATCH} files through the plain resynthesis config"
     kernels = [
@@ -4450,6 +4560,9 @@ def main() -> int:
               "stage; route_graph_ms is the per-branch route: three K2 launches, their sum and mean)", [(record(k3, "serving"), 1)]),
         entry("codebook_assign", "speech_resynth_torch/ops/csrc/codebook.cu", "speech_resynth_tpu/ops/codebook.py:29",
               k4, resynth_batch, [(record(k4, resynth_encoder), 1)]),
+        entry("conv_ff", "speech_resynth_torch/ops/csrc/conv_ff.cu", "none: XLA's convs (speech_resynth_tpu/models/transformer.py:223)",
+              k5, resynth_batch + f" ({FF_PER_BATCH} launches, two a feed-forward call; plain_ms is the plain chain)",
+              [(resynth_ff, FF_PER_BATCH // 2)]),
     ]
     lap("the held shapes and the kernels line")
     print(json.dumps({"phase": "wall", "seconds": time.perf_counter() - start, "note": "the whole script after the build started"}))

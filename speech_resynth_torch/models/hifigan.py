@@ -13,7 +13,7 @@ and the mean of the branches in PyTorch; other stages run the plain conv
 chain. Neither kernel has a backward, so a call that records a gradient
 (``records_grad``) runs the plain conv chain everywhere, as the JAX package
 trains the flax generator and keeps its kernels to inference
-(``mrf_route``). While ``ops.fused_mrf.MRF_STAGE_FUSION`` is set (``mrf_stage_fusion``),
+(``ops.build.kernel_route``). While ``ops.fused_mrf.MRF_STAGE_FUSION`` is set (``mrf_stage_fusion``),
 a stage that K3 takes (``stage_fusion_eligible``: its widest branch fits
 K2's block) runs whole through ``ops.fused_mrf.mrf_stage`` instead: one
 launch of K2's block that loops over the branches and keeps their f32 sum,
@@ -36,6 +36,7 @@ from torch import nn
 from ..core import initializers as I
 from ..core.precision import DEFAULT, Policy
 from ..ops import fused_mrf
+from ..ops.build import kernel_route, records_grad
 from ..ops.fused_mrf import LRELU_SLOPE, mrf_branch, mrf_branch_fits, mrf_stage, mrf_stage_fits
 
 FUSED_MAX_CHANNELS = 64
@@ -93,22 +94,6 @@ def stage_fusion_eligible(channels: int, kernel_sizes, dilation_sizes, itemsize:
     )
 
 
-def records_grad(x: torch.Tensor, module: nn.Module) -> bool:
-    """Whether autograd records a call of ``module`` on ``x``: grad mode is on
-    and the input or one of the module's parameters requires grad."""
-    return torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in module.parameters()))
-
-
-def mrf_route(fits: bool, on_card: bool, grad: bool) -> str:
-    """How a branch or a stage runs: ``"kernel"`` (K2 or K3) where the kernel
-    takes it, on the card, with no gradient recorded; ``"reference"`` (the
-    kernel's plain version) for the same call on the CPU; ``"plain chain"``
-    (the conv chain) otherwise. Decided before any launch."""
-    if not fits or grad:
-        return "plain chain"
-    return "kernel" if on_card else "reference"
-
-
 def _conv(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tensor:
     return F.conv1d(
         x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding, dilation=conv.dilation
@@ -148,7 +133,7 @@ class ResidualBlock(nn.Module):
         return w1, b1, w2, b2, self.dilations
 
     def route(self, x: torch.Tensor) -> str:
-        return mrf_route(self.fused, x.is_cuda, records_grad(x, self))
+        return kernel_route(self.fused, x.is_cuda, records_grad(x, self))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.policy.compute_dtype
@@ -224,7 +209,7 @@ class HifiGanGenerator(nn.Module):
             x = F.conv_transpose1d(x, up.weight.to(cd), up.bias.to(cd), stride=up.stride, padding=up.padding)
             blocks = self.resblocks[i * num_kernels : (i + 1) * num_kernels]
             fits = fused_mrf.MRF_STAGE_FUSION and self.stage_eligible[i]
-            if mrf_route(fits, x.is_cuda, records_grad(x, self)) != "plain chain":
+            if kernel_route(fits, x.is_cuda, records_grad(x, self)) != "plain chain":
                 x = mrf_stage(x.to(cd).contiguous(), self._stage_operands(i, blocks), slope)
                 continue
             res = None

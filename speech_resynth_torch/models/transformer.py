@@ -10,7 +10,9 @@ follow the HF-format checkpoint keys (``transformer.layers.{i}.{0..4}``), so
 a checkpoint loads with ``load_state_dict``. Attention goes through
 ``ops.attention.dot_product_attention``, routed by ``attn_implementation``
 ("auto": the flash kernel on the card, with the plain version's gradient
-when training; "xla": the plain version).
+when training; "xla": the plain version). The feed-forward takes K5
+(``ops.conv_ff``) on the card where no gradient is recorded
+(``ConvFeedForward.route``).
 
 Training (a ``dropout_seed`` given): attention dropout takes the JAX
 package's explicit path (f32 scores, -1e30 on masked keys, softmax, dropout
@@ -33,7 +35,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.precision import DEFAULT, Policy
+from ..core.tracing import trace_count
+from ..ops import conv_ff
 from ..ops.attention import dot_product_attention
+from ..ops.build import kernel_route, records_grad
 
 RMS_EPS = float(torch.finfo(torch.float32).eps)  # torch nn.RMSNorm eps=None
 
@@ -220,7 +225,19 @@ class Attention(nn.Module):
 
 class ConvFeedForward(nn.Module):
     """Conv1d(k=3) -> SiGLU (gate = second channel half) -> Conv1d(k=3); masks
-    its input and the hidden activation."""
+    its input and the hidden activation.
+
+    The route, decided from what each call shows (``route``, by the rule the
+    vocoder's kernels follow, ``ops.build.kernel_route``): ``"kernel"`` (K5,
+    ``ops.conv_ff``: two channels-last launches, no layout copies) for a CUDA
+    tensor in a bf16 compute dtype with no gradient recorded, no dropout, C a
+    multiple of 256 and I of 128; ``"reference"`` (K5's plain version) for the same call on the CPU;
+    ``"plain chain"`` (the torch convs) for everything else: every training
+    step and the FLOAT32 policy. The kernel's weights are laid out once and
+    again only when a parameter moves, is replaced or changes in place. While
+    a profiler session records, each call counts its B * N frame rows as
+    ``decoder.ff_kernel_rows`` on the kernel route and ``decoder.ff_plain_rows``
+    on the others."""
 
     def __init__(self, hidden_size: int, intermediate_size: int, kernel_size: int = 3, policy: Policy = DEFAULT,
                  dropout: float = 0.0):
@@ -229,14 +246,37 @@ class ConvFeedForward(nn.Module):
         self.dropout = dropout
         self.conv1 = nn.Conv1d(hidden_size, 2 * intermediate_size, kernel_size, dtype=policy.param_dtype)
         self.conv2 = nn.Conv1d(intermediate_size, hidden_size, kernel_size, dtype=policy.param_dtype)
+        self.kernel_fits = (
+            conv_ff.ff_kernel_fits(hidden_size, intermediate_size, kernel_size) and policy.compute_dtype == torch.bfloat16
+        )
+        self._ops = None  # (parameter key, the weights laid out for K5)
+
+    def route(self, x: torch.Tensor, dropout_on: bool = False) -> str:
+        return kernel_route(self.kernel_fits and not dropout_on, x.is_cuda, records_grad(x, self))
+
+    def operands(self) -> conv_ff.FFOperands:
+        """The weights laid out for K5, kept until a parameter moves, is
+        replaced or changes in place."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._ops is None or self._ops[0] != key:
+            with torch.no_grad():
+                ops = conv_ff.ff_operands(self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias,
+                                          self.policy.compute_dtype)
+            self._ops = key, ops
+        return self._ops[1]
 
     def forward(self, x, mask=None, dropout_seed=None, dropout_rows=None):
         cd = self.policy.compute_dtype
+        dropout_on = self.dropout > 0 and dropout_seed is not None
+        route = self.route(x, dropout_on)
+        trace_count("decoder.ff_kernel_rows" if route == "kernel" else "decoder.ff_plain_rows", x.shape[0] * x.shape[1])
         if mask is not None:
             x = x.masked_fill(~mask[..., None], 0)
+        if route != "plain chain":
+            return conv_ff.conv_ff(x.to(cd).contiguous(), self.operands(), mask)
         value, gate = _conv_same(x, self.conv1, cd).chunk(2, dim=-1)
         h = F.silu(gate) * value
-        if self.dropout > 0 and dropout_seed is not None:
+        if dropout_on:
             h = dropout(h, self.dropout, dropout_seed, dropout_rows)
         if mask is not None:
             h = h.masked_fill(~mask[..., None], 0)

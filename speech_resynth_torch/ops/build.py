@@ -56,6 +56,9 @@ SIGNATURES = {
     "srt_mrf_stage_scratch_floats": [_P],
     # x (N, D), c_hi (K, D), c_lo (K, D), half_sq, packed (scratch), ids, N, D, K, x_is_bf16, stream
     "srt_codebook_assign": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x (B, N, c_in), w (n_cols, 3 c_in), bias (f32), mask (nullable), out, B, N, c_in, n_cols, siglu, stream
+    # (the column tile is planned in C)
+    "srt_conv_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -138,6 +141,23 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         text = kernel_library().srt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err} ({text})")
+
+
+def records_grad(x: torch.Tensor, module: torch.nn.Module) -> bool:
+    """Whether autograd records a call of ``module`` on ``x``: grad mode is on
+    and the input or one of the module's parameters requires grad."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in module.parameters()))
+
+
+def kernel_route(fits: bool, on_card: bool, grad: bool) -> str:
+    """How a block with a hand-written kernel runs: ``"kernel"`` where the
+    kernel takes it, on the card, with no gradient recorded (no kernel has a
+    backward); ``"reference"`` (the kernel's plain version) for the same call
+    on the CPU; ``"plain chain"`` (the block's torch ops) otherwise. Decided
+    from what the call shows, before any launch."""
+    if not fits or grad:
+        return "plain chain"
+    return "kernel" if on_card else "reference"
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

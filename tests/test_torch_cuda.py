@@ -1382,6 +1382,134 @@ class RecordingWriter:
         return lambda *args, **kwargs: None
 
 
+# ---------------------------------------------------------------------------
+# K5: the velocity transformer's conv feed-forward (ops/conv_ff.py)
+# ---------------------------------------------------------------------------
+
+# K5 against its plain version on the same bf16 operands: both sum in f32 and
+# round h once, so they part only where the summation order or __expf moves
+# h across a bf16 rounding boundary (one ulp of those elements) and where
+# the output rounds: within 1e-2 of the output's largest magnitude.
+FF_TOL = 1e-2
+# the serving batch's velocity model through sample() by both routes, against
+# its f32 plain chain (TF32 off): the kernel route's worst-row normalized mel
+# error may exceed the bf16 plain chain's by at most FF_SAMPLE_MARGIN of it
+FF_SAMPLE_MARGIN = 1.25
+
+
+def ff_case(c, i, B, N, mask_kind, seed=0):
+    """A feed-forward's laid-out bf16 weights (nonzero biases), x (B, N, C)
+    bf16 masked where its frame mask (padded tails, holes, none) says."""
+    from speech_resynth_torch.ops import conv_ff as K5
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w1 = torch.randn(2 * i, c, 3, generator=gen, device="cuda") / (3 * c) ** 0.5
+    w2 = torch.randn(c, i, 3, generator=gen, device="cuda") / (3 * i) ** 0.5
+    b1, b2 = 0.5 * torch.randn(2 * i, generator=gen, device="cuda"), 0.5 * torch.randn(c, generator=gen, device="cuda")
+    ops = K5.ff_operands(w1, b1, w2, b2, torch.bfloat16)
+    x = torch.randn(B, N, c, generator=gen, device="cuda")
+    mask = None
+    if mask_kind != "none":
+        lengths = torch.randint(1, N + 1, (B,), generator=gen, device="cuda")
+        lengths[0] = N
+        mask = torch.arange(N, device="cuda")[None, :] < lengths[:, None]
+        if mask_kind == "holes":
+            mask &= torch.rand(B, N, generator=gen, device="cuda") > 0.3
+        x = x.masked_fill(~mask[..., None], 0)
+    return x.to(torch.bfloat16), ops, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,i,B,N,mask_kind", [
+    (256, 896, 32, 1024, "tail"),  # serving
+    (256, 896, 32, 1536, "tail"),
+    (256, 896, 32, 1152, "holes"),
+    (256, 896, 1, 50, "none"),  # a streaming window
+    (256, 896, 3, 1, "tail"),
+    (256, 896, 4, 333, "holes"),  # N not a multiple of the 128-row tile
+    (256, 896, 2, 129, "tail"),
+    (256, 128, 3, 200, "holes"),  # the narrowest widths K5 takes: one column tile each
+])
+def test_conv_ff_kernel_matches_plain_on_card(card, c, i, B, N, mask_kind):
+    from speech_resynth_torch.ops import conv_ff as K5
+
+    x, ops, mask = ff_case(c, i, B, N, mask_kind)
+    before = K5.conv_ff_kernel.launches
+    got = K5.conv_ff_kernel(x, ops, mask)
+    torch.cuda.synchronize()
+    want = K5.conv_ff_reference(x, ops, mask)
+    assert K5.conv_ff_kernel.launches == before + 2
+    assert got.shape == want.shape and got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert max_abs_diff(got, want) <= FF_TOL * float(want.float().abs().max()), (c, i, B, N, mask_kind)
+
+
+def max_abs_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.cuda
+def test_conv_ff_kernel_reads_no_other_batch_row_on_card(card):
+    """A frame's output sees only its own batch row: the SAME padding at
+    each row's ends comes from the tensor map's bounds, so another row's
+    frames change nothing."""
+    from speech_resynth_torch.ops import conv_ff as K5
+
+    x, ops, mask = ff_case(256, 896, 3, 200, "holes", seed=1)
+    base = K5.conv_ff_kernel(x, ops, mask)
+    x2 = x.clone()
+    x2[1] = 7.0
+    out2 = K5.conv_ff_kernel(x2, ops, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out2[0], base[0]) and torch.equal(out2[2], base[2]) and not torch.equal(out2[1], base[1])
+
+
+@pytest.mark.cuda
+def test_sample_at_the_serving_shape_by_both_routes_on_card(card, monkeypatch):
+    """The serving batch's velocity model (the Expresso widths, 32 rows of
+    up to 1 024 units, euler 16) through ``sample``: K5 launches exactly 2 x 4
+    layers x 16 steps times, and the mel it gives is as close to the f32
+    plain chain's as the bf16 plain chain's is."""
+    from speech_resynth_torch.core.precision import BF16_INFERENCE, FLOAT32
+    from speech_resynth_torch.models import transformer as TR
+    from speech_resynth_torch.models.cfm import CFMConfig, ConditionalFlowMatchingModel
+    from speech_resynth_torch.models.composite import init_random_weights
+    from speech_resynth_torch.ops import conv_ff as K5
+
+    cfg = CFMConfig()
+    model = ConditionalFlowMatchingModel(cfg, BF16_INFERENCE)
+    init_random_weights(model, torch.Generator().manual_seed(0))
+    model32 = ConditionalFlowMatchingModel(cfg, FLOAT32)
+    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    model, model32 = (m.to("cuda").eval().requires_grad_(False) for m in (model, model32))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, cfg.vocab_size + 1, (32, 1024))
+    lengths = rng.integers(50, 1025, 32)
+    lengths[0] = 1024
+    ids[np.arange(1024)[None, :] >= lengths[:, None]] = 0
+    ids = torch.from_numpy(ids).cuda()
+    x0 = torch.from_numpy(rng.standard_normal((32, 1024, cfg.dim_in)).astype(np.float32)).cuda()
+
+    def run(m):
+        mel, mask = m.sample(ids, 1 / 16, 1.0, x0=x0)
+        return (mel.float() - cfg.mean) / cfg.std, mask
+
+    before = K5.conv_ff_kernel.launches
+    kernel, mask = run(model)
+    torch.cuda.synchronize()
+    assert K5.conv_ff_kernel.launches - before == 2 * cfg.depth * 16
+    want, _ = run(model32)
+    monkeypatch.setattr(TR.ConvFeedForward, "route", lambda self, x, dropout_on=False: "plain chain")
+    plain, _ = run(model)
+
+    def worst(a):
+        return max(float((a[j, :n] - want[j, :n]).norm() / want[j, :n].norm()) for j, n in enumerate(lengths))
+
+    assert torch.equal(mask.cpu(), torch.from_numpy(np.arange(1024)[None, :] < lengths[:, None]))
+    kernel_err, plain_err = worst(kernel), worst(plain)
+    print(f"mel_rel_err against the f32 plain chain: kernel route {kernel_err:.6f}, bf16 plain chain {plain_err:.6f}")
+    assert kernel_err <= FF_SAMPLE_MARGIN * plain_err, (kernel_err, plain_err)
+
+
 if __name__ == "__main__":
     # python tests/test_torch_cuda.py [steps] [policy ...]: gan_steps_card_vs_cpu's
     # records on the card, one JSON line a policy; python tests/test_torch_cuda.py

@@ -178,6 +178,63 @@ def test_conv_feedforward_gate_gelu_and_masks(cfm_pair):
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs), **TR_TOL)
 
 
+@pytest.mark.parametrize("precision", ["float32", "bf16_inference"])
+def test_conv_feedforward_plain_version_of_k5_matches_jax(precision):
+    """K5's plain version (``ops.conv_ff.conv_ff_reference``: bias and SiGLU
+    in f32, h rounded once), which the kernel repeats on the card, against
+    the JAX package's ConvFeedForward at the smallest widths K5 takes (C =
+    256, I = 128), on a mask with a padded tail and a hole. In f32 at TR_TOL.
+    Under BF16_INFERENCE the port module on its CPU route ("reference")
+    against JAX's bf16 run on the same bf16 weights and inputs, held by the
+    CFM limits of tests/test_torch_policy.py: the share of elements more than
+    one bf16 ulp from JAX's (the block measure), and the distance from JAX's
+    bf16 run over that run's distance from its f32 run (the model measure)."""
+    from speech_resynth_tpu.core.precision import BF16_INFERENCE as JAX_BF16
+    from speech_resynth_torch.core.precision import BF16_INFERENCE
+    from speech_resynth_torch.ops import conv_ff as K5
+    from test_torch_policy import LIMITS, model_ratio, ulp_share
+
+    c, i = 256, 128
+    rng = np.random.default_rng(21)
+    params = {
+        "conv1_kernel": rng.standard_normal((3, c, 2 * i)) / np.sqrt(3 * c), "conv1_bias": 0.5 * rng.standard_normal(2 * i),
+        "conv2_kernel": rng.standard_normal((3, i, c)) / np.sqrt(3 * i), "conv2_bias": 0.5 * rng.standard_normal(c),
+    }
+    x = rng.standard_normal((2, 37, c)).astype(np.float32)
+    mask = _mask(2, 37, seed=21)
+    mask[0, 5:9] = False
+    bf16 = precision == "bf16_inference"
+    if bf16:  # both sides take the same bf16 values
+        params = {k: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16).float().numpy() for k, v in params.items()}
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    params = {k: jnp.asarray(v.astype(np.float32)) for k, v in params.items()}
+
+    def jax_run(policy):
+        jff = jax_tr.ConvFeedForward(c, i, policy=policy)
+        return np.asarray(jff.apply({"params": policy.cast_params(params)}, jnp.asarray(x), jnp.asarray(mask)), np.float32)
+
+    ff = torch_tr.ConvFeedForward(c, i, policy=BF16_INFERENCE if bf16 else FLOAT32)
+    ff.load_state_dict({
+        "conv1.weight": torch.from_numpy(np.asarray(params["conv1_kernel"]).transpose(2, 1, 0).copy()),
+        "conv1.bias": torch.from_numpy(np.array(params["conv1_bias"])),
+        "conv2.weight": torch.from_numpy(np.asarray(params["conv2_kernel"]).transpose(2, 1, 0).copy()),
+        "conv2.bias": torch.from_numpy(np.array(params["conv2_bias"])),
+    })
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    with torch.no_grad():
+        if not bf16:
+            ours = K5.conv_ff_reference(xt.masked_fill(~mt[..., None], 0), ff.operands(), mt)
+            np.testing.assert_allclose(ours.numpy(), jax_run(JAX_FLOAT32), **TR_TOL)
+            return
+        xb = xt.to(torch.bfloat16)
+        assert ff.route(xb) == "reference"
+        ours = ff(xb, mt)
+    theirs, f32 = jax_run(JAX_BF16), jax_run(JAX_FLOAT32)
+    share, ratio = ulp_share(ours, theirs), model_ratio(ours, theirs, f32)
+    print(f"K5 plain version vs JAX bf16: ulp share {share:.4f}, distance ratio {ratio:.4f}")
+    assert share <= LIMITS["cfm"]["block"] and ratio <= LIMITS["cfm"]["model"], (share, ratio)
+
+
 def test_conv_position_embed_matches_jax(cfm_pair):
     cfg, jmodel, variables, port = cfm_pair
     x = np.random.default_rng(4).standard_normal((2, 11, cfg.hidden_size)).astype(np.float32)

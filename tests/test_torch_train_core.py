@@ -29,6 +29,7 @@ from speech_resynth_torch.models import hifigan as TH
 from speech_resynth_torch.ops import attention as TA
 from speech_resynth_torch.ops import codebook as TC
 from speech_resynth_torch.ops import fused_mrf as TM
+from speech_resynth_torch.ops.build import kernel_route, records_grad
 from speech_resynth_torch.train import common
 
 GRAD_ATOL = 1e-5
@@ -118,10 +119,11 @@ def test_kernel_wrappers_refuse_tensors_that_require_grad():
 
 
 def test_mrf_route_takes_the_kernel_only_without_gradient():
-    assert TH.mrf_route(fits=True, on_card=True, grad=False) == "kernel"
-    assert TH.mrf_route(fits=True, on_card=True, grad=True) == "plain chain"
-    assert TH.mrf_route(fits=True, on_card=False, grad=False) == "reference"
-    assert TH.mrf_route(fits=False, on_card=True, grad=False) == "plain chain"
+    """The route rule K2, K3 and K5 share (``ops.build.kernel_route``)."""
+    assert kernel_route(fits=True, on_card=True, grad=False) == "kernel"
+    assert kernel_route(fits=True, on_card=True, grad=True) == "plain chain"
+    assert kernel_route(fits=True, on_card=False, grad=False) == "reference"
+    assert kernel_route(fits=False, on_card=True, grad=False) == "plain chain"
 
 
 def test_generator_under_gradient_runs_the_plain_chain(monkeypatch):
@@ -152,8 +154,8 @@ def test_generator_under_gradient_runs_the_plain_chain(monkeypatch):
             calls.clear()
     with torch.no_grad():
         x = torch.randn(1, 64, 10)
-        assert not TH.records_grad(x, blocks[0])
-    assert TH.records_grad(x, blocks[0]) and not TH.records_grad(x, blocks[0].requires_grad_(False))
+        assert not records_grad(x, blocks[0])
+    assert records_grad(x, blocks[0]) and not records_grad(x, blocks[0].requires_grad_(False))
 
 
 # ---------------------------------------------------------------------------
